@@ -1,19 +1,16 @@
 # Developer entry points (the reference ships complete generated makefiles;
-# SURVEY.md §2.18).  `make test` and `make bench` are the two paths the
-# round driver and CI use.
+# SURVEY.md §2.18).  `make test` is the path CI uses; `python chip_smoke.py`
+# is the GPU smoke run.
 
 PY ?= python
 
-.PHONY: install test bench selftest soak soak-quick sanitize native clean tpu-check
+.PHONY: install test selftest soak soak-quick sanitize native clean
 
 install:
 	$(PY) -m pip install -e . --no-build-isolation
 
 test:
 	$(PY) -m pytest tests/ -x -q
-
-bench:
-	$(PY) bench.py
 
 selftest:
 	$(PY) -m mjpeg423_tpu.cli selftest
@@ -22,7 +19,6 @@ selftest:
 soak:
 	$(PY) scripts/parity_soak.py 30
 	$(PY) scripts/fuzz_native.py 30
-	$(PY) scripts/bench_multihost.py --hosts 2 --out MULTIHOST_BENCH.json
 
 # Bounded (~2 min) seeded soak for CI: the seed is printed first so any
 # failure reproduces with `make soak-quick SOAK_SEED=<seed>`.
@@ -49,7 +45,3 @@ clean:
 	rm -rf build dist *.egg-info .oracle_build .jax_cache
 	rm -rf mjpeg423_tpu/native/_build
 	find . -name __pycache__ -type d -prune -exec rm -rf {} \;
-
-# On-hardware validation (the pytest suite runs on the CPU virtual mesh).
-tpu-check:
-	$(PY) scripts/tpu_check.py

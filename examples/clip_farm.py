@@ -8,7 +8,7 @@ clip pays a dispatch.  The segmented temporal scan makes both fixes exact:
   2. decode_streams / StreamPool.decode_all_packed: frames of consecutive
      clips PACK into shared windows; seg resets at every clip seam.
 
-Run: python examples/clip_farm.py   (CPU or TPU; same code.)
+Run: python examples/clip_farm.py   (default JAX backend; same code on CPU or GPU.)
 """
 import pathlib
 import sys

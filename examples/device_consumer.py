@@ -1,15 +1,10 @@
 """Device-resident serving: decoded frames feed a model with NO host egress.
 
-The production configuration for model-input pipelines: the fused decode
-kernel emits its native blocked layout (W, 8, blocks_h, 8, blocks_w) and
-the consumer runs on-device in the SAME jit — only the model's output
-(here, per-frame logits) ever crosses back to the host.  The device->host
-raster path exists for display (blocked_to_raster_host), but a model does
-not care about raster order, and the on-device raster transpose is
-pathological on TPU (~45x the decode kernel — DESIGN.md §2).
+The production configuration for model-input pipelines: the decode step
+and the consumer run on-device in the SAME jit — only the model's output
+(here, per-frame logits) ever crosses back to the host.
 
-Run: python examples/device_consumer.py   (CPU interpret mode; on a real
-TPU the same code runs the compiled kernel.)
+Run: python examples/device_consumer.py   (default JAX backend.)
 """
 import pathlib
 import sys
@@ -23,7 +18,7 @@ import jax.numpy as jnp
 from mjpeg423_tpu.codec.decoder import parse_coefficient_deltas
 from mjpeg423_tpu.codec.encoder import encode_frames
 from mjpeg423_tpu.core.format import parse_file
-from mjpeg423_tpu.ops.transform_fused import decode_window_fused
+from mjpeg423_tpu.ops.transform_jax import decode_window
 
 
 def synthesize(num_frames, h=64, w=96, seed=0):
@@ -51,20 +46,20 @@ def main():
 
     @jax.jit
     def decode_and_classify(amps, seg, carry, weights):
-        # Fused decode, blocked layout out -- stays on device.
-        frames, new_carry = decode_window_fused(
-            amps, seg, carry, blocks_h=bh, blocks_w=bw, raster=False,
+        # Decode window -- stays on device.
+        frames, new_carry = decode_window(
+            amps, seg, carry, blocks_h=bh, blocks_w=bw,
         )
-        # frames: (F, 8, bh, 8, bw) uint32 BGRA-packed.  Unpack channels
-        # with integer ops (cheap VPU work, fused by XLA) and global-pool.
+        # frames: (F, H, W) uint32 BGRA-packed.  Unpack channels with
+        # integer ops (fused by XLA) and global-pool.
         b = (frames & 0xFF).astype(jnp.float32)
         g = ((frames >> 8) & 0xFF).astype(jnp.float32)
         r = ((frames >> 16) & 0xFF).astype(jnp.float32)
         feats = jnp.stack([
-            r.mean(axis=(1, 2, 3, 4)),
-            g.mean(axis=(1, 2, 3, 4)),
-            b.mean(axis=(1, 2, 3, 4)),
-            r.std(axis=(1, 2, 3, 4)),
+            r.mean(axis=(1, 2)),
+            g.mean(axis=(1, 2)),
+            b.mean(axis=(1, 2)),
+            r.std(axis=(1, 2)),
         ], axis=-1)                      # (F, 4)
         return feats @ weights, new_carry  # (F, n_classes) logits
 
@@ -75,19 +70,19 @@ def main():
     logits, _ = decode_and_classify(
         jnp.asarray(amps), jnp.asarray(seg), carry, weights
     )
-    print("logits per frame (only these crossed the PCIe/tunnel):")
+    print("logits per frame (only these crossed back to the host):")
     print(np.asarray(logits).round(2))
     assert logits.shape == (F, 5)
     print("ok: decode -> model consumed", F, "frames device-resident")
 
     # The same configuration through the PRODUCTION pipeline API: the
     # streaming decoder keeps every window on device
-    # (decode(device_resident=True)); the consumer jit reads the blocked
-    # frames directly and only its scalar output is fetched.
+    # (decode(device_resident=True)); the consumer jit reads the frames
+    # directly and only its scalar output is fetched.
     from mjpeg423_tpu.runtime import DecodePipeline
 
     @jax.jit
-    def consume(frames):  # frames: (W, 8, bh, 8, bw) uint32, padded rows ok
+    def consume(frames):  # frames: (W, H, Wd) uint32, padded rows ok
         return (frames & 0xFF).astype(jnp.float32).mean()
 
     pipe = DecodePipeline()

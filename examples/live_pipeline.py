@@ -14,7 +14,7 @@ live simultaneously:
 Backpressure is end-to-end: a slow consumer fills the pipe, which stalls
 the producer's write — no unbounded buffering anywhere.
 
-Run: python examples/live_pipeline.py   (CPU or TPU; same code.)
+Run: python examples/live_pipeline.py   (default JAX backend; same code on CPU or GPU.)
 """
 import os
 import pathlib

@@ -1,8 +1,7 @@
-"""Multi-chip decode example: every sharding mode on a virtual 8-chip mesh.
+"""Multi-device decode example: every sharding mode over all devices.
 
-Run: python examples/sharded_decode.py   (CPU: forces an 8-device virtual
-mesh; on a real TPU slice, drop the two config lines and the same code
-shards over the physical chips.)
+Run: python examples/sharded_decode.py   (default JAX backend: every GPU
+of the host; on the CPU backend XLA_FLAGS below gives 8 virtual devices.)
 """
 import pathlib
 import sys
@@ -13,8 +12,6 @@ import os
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -48,21 +45,20 @@ def main():
     print(f"stream: {len(data)} bytes, {want.shape[0]} frames "
           f"{want.shape[2]}x{want.shape[1]}, {len(jax.devices())} devices")
 
-    # Mode 1: streams over chips (serving) — 8 copies of the stream,
-    # one pinned pipeline per device.
-    pool = StreamPool(DecodeConfig(use_pallas=False), devices=jax.devices())
-    stats = pool.decode_all([data] * 8, max_concurrent=8)
+    n = len(jax.devices())
+    # Mode 1: streams over devices (serving) — one copy of the stream per
+    # device, one pinned pipeline per device.
+    pool = StreamPool(DecodeConfig(), devices=jax.devices())
+    stats = pool.decode_all([data] * n, max_concurrent=n)
     print(f"mode 1 streams-over-chips: {stats.frames} frames, "
           f"{stats.frames_per_s:.0f} frames/s aggregate")
 
     # Mode 2: one stream's GOPs over chips, streaming.
-    mesh = make_mesh(n_data=8, n_block=1)
-    pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=3, use_pallas=False), mesh=mesh
-    )
+    mesh = make_mesh(n_data=n, n_block=1)
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3), mesh=mesh)
     got = pipe.decode_array(data)
     assert (got == want).all()
-    print("mode 2 gop-sharded streaming: bit-exact on the 8-device mesh")
+    print(f"mode 2 gop-sharded streaming: bit-exact on the {n}-device mesh")
 
     # Mode 3: batch decode, auto GOP-aligned partitioning.
     got = np.asarray(decode_stream_sharded(data, mesh))

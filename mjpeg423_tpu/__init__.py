@@ -1,6 +1,6 @@
-"""mjpeg423_tpu — TPU-native MJPEG423 video decode/encode framework.
+"""mjpeg423_tpu — MJPEG423 video decode/encode framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 dual-core Nios-II MJPEG423 player (ghananigans/mjpeg423-video-decoder-software):
 the complete bit-exact codec, a stage-decoupled decode pipeline, GOP-sharded
 and sequence-parallel multi-chip execution, playback control (play/seek/FF/RW)
@@ -8,7 +8,7 @@ and a native C entropy codec for the serial host-side bit parsing.
 
 Layers (bottom-up):
   core/      container format, tables, config        (ref L2/L3 analogs)
-  ops/       entropy + transform kernels: NumPy oracle, JAX, Pallas
+  ops/       entropy + transform math: NumPy oracles, JAX device steps
   native/    C entropy codec (the hot host-side op)
   codec/     end-to-end encoder/decoder APIs          (ref 2.1e/2.1j)
   parallel/  mesh / GOP sharding / temporal scan      (ref §2 parallelism)

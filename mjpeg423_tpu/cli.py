@@ -1,4 +1,4 @@
-"""Command-line interface: decode / encode / play / info / bench.
+"""Command-line interface: decode / encode / play / info / serve.
 
 The reference's UI is four pushbuttons polled by the core0 main loop
 (reference: core0/software/main.c:29-127 — Play/Pause, NextVideo, FF, RW) on
@@ -9,7 +9,7 @@ toolchain:
   encode  <frame.bmp ...|in.npy> -o out.mpg [--max-i-interval N]
   play    <in.mpg> [--fps N] [--no-pace] [--ff/--rw emulation via --start-s]
   info    <in.mpg>
-  bench   [... forwarded to bench.py's main]
+  serve   <in.mpg ...> [--packed] [--all-devices]
 """
 from __future__ import annotations
 
@@ -102,9 +102,7 @@ def cmd_decode(args) -> int:
     live = args.input == "-"
     data = None if live else _load_stream(args.input)
     kw = {} if args.batch is None else {"frames_per_batch": args.batch}
-    cfg = DecodeConfig(
-        use_pallas=False if args.no_pallas else None, **kw
-    )
+    cfg = DecodeConfig(**kw)
     profiler = Profiler()
     mesh = None
     if args.all_devices:
@@ -220,7 +218,7 @@ def cmd_thumbs(args) -> int:
 
     data = _load_stream(args.input)
     kw = {} if args.batch is None else {"frames_per_batch": args.batch}
-    cfg = DecodeConfig(use_pallas=False if args.no_pallas else None, **kw)
+    cfg = DecodeConfig(**kw)
     pipe = DecodePipeline(cfg)
     os.makedirs(args.outdir, exist_ok=True)
     t0 = time.perf_counter()
@@ -405,7 +403,7 @@ def cmd_play(args) -> int:
 
     sink = _make_play_sink(args)
 
-    cfg = DecodeConfig(fps=args.fps, use_pallas=False if args.no_pallas else None)
+    cfg = DecodeConfig(fps=args.fps)
     playlist = list(args.inputs)
     if playlist == ["-"]:
         # Live stdin playback: paced delivery, no seek (forward-only).
@@ -500,15 +498,13 @@ def cmd_selftest(args) -> int:
         frames.append(f)
     data = encoder.encode_frames_device(frames, max_i_interval=4)
     want = decoder.decode_stream_array(data)
-    pipe = DecodePipeline(DecodeConfig(use_pallas=False if args.no_pallas else None,
-                                       frames_per_batch=3))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3))
     got = pipe.decode_array(data)
     ok = np.array_equal(got, want)
     import jax
 
     print(
-        f"selftest backend={jax.default_backend()} frames={args.frames} "
-        f"pipeline={'pallas-fused' if not args.no_pallas else 'xla'}: "
+        f"selftest backend={jax.default_backend()} frames={args.frames}: "
         f"{'PASS (bit-exact)' if ok else 'FAIL'}",
         file=sys.stderr,
     )
@@ -520,7 +516,7 @@ def cmd_serve(args) -> int:
     from .utils.config import DecodeConfig
 
     streams = [_load_stream(p) for p in args.inputs]
-    cfg = DecodeConfig(use_pallas=False if args.no_pallas else None)
+    cfg = DecodeConfig()
     devices = None
     if args.all_devices:
         import jax
@@ -559,15 +555,6 @@ def cmd_serve(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    import subprocess
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return subprocess.call(
-        [sys.executable, os.path.join(root, "bench.py"), *args.rest]
-    )
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mjpeg423", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -591,7 +578,6 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=None,
                    help="frames per device window (default: the tuned "
                         "DecodeConfig value)")
-    p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--all-devices", action="store_true",
                    help="GOP-shard the stream over every local chip "
                         "(mesh streaming pipeline)")
@@ -610,7 +596,6 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--outdir", default=".")
     p.add_argument("--prefix", default="thumb")
     p.add_argument("--batch", type=int, default=None)
-    p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--scale", type=int, default=1, choices=(1, 2, 4, 8),
                    help="device-side box downscale factor (thumbnails "
                         "transfer scale^2 x fewer bytes)")
@@ -648,7 +633,6 @@ def main(argv=None) -> int:
     p.add_argument("inputs", nargs="+")
     p.add_argument("--fps", type=float, default=24.0)
     p.add_argument("--no-pace", action="store_true")
-    p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--start-s", type=float, default=0.0)
     p.add_argument("--loop", type=int, default=0,
                    help="repeat the playlist N more times after the first "
@@ -670,13 +654,11 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("selftest", help="encode/decode round-trip self-check")
     p.add_argument("--frames", type=int, default=6)
-    p.add_argument("--no-pallas", action="store_true")
     p.set_defaults(fn=cmd_selftest)
 
     p = sub.add_parser("serve", help="decode many containers concurrently")
     p.add_argument("inputs", nargs="+")
     p.add_argument("--concurrent", type=int, default=4)
-    p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--all-devices", action="store_true",
                    help="spread streams over every local chip (one pinned "
                         "pipeline per device)")
@@ -693,11 +675,10 @@ def main(argv=None) -> int:
                         "I-frames) instead of failing the stream")
     p.set_defaults(fn=cmd_serve)
 
-    p = sub.add_parser("bench", help="run the benchmark harness")
-    p.add_argument("rest", nargs=argparse.REMAINDER)
-    p.set_defaults(fn=cmd_bench)
-
     args = ap.parse_args(argv)
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

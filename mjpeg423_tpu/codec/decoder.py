@@ -4,9 +4,9 @@ Mirrors the end-to-end reference decoder (reference:
 decoder/mjpeg423_decoder.c:20-149): parse container -> per frame entropy
 decode 3 planes -> dequantize (P frames accumulate into previous state) ->
 IDCT every block -> YCbCr->RGB.  This NumPy path is the bit-exactness oracle
-for the TPU pipeline; the production path lives in mjpeg423_tpu/runtime/.
+for the device pipeline; the production path lives in mjpeg423_tpu/runtime/.
 
-Stage decomposition (shared with the TPU path):
+Stage decomposition (shared with the device path):
 
   parse_coefficient_deltas():  bitstreams -> dense (F, B, 64) int16 amplitude
       tensors per plane (host; serial per plane-frame, parallel across them).

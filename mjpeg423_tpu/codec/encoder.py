@@ -31,7 +31,6 @@ from ..core.format import (
     Frame,
     _U32x2,
     _U32x4,
-    serialize_file,
 )
 from ..native import centropy
 from ..ops import encode_ref, entropy_ref
@@ -487,8 +486,7 @@ def _pack_q3(q3):
     """jit'd device-side narrowing for fetch_i8: int16 planes ->
     (dc int16, ac int8 with position 0 zeroed, overflow flag).  Module-
     level singleton so the jit cache survives across encode calls (a
-    per-call closure recompiled through the remote compile service every
-    invocation — measured +0.14 s/call)."""
+    per-call closure would retrace and recompile every invocation)."""
     global _PACK_Q3
     if _PACK_Q3 is None:
         import jax
@@ -506,18 +504,30 @@ def _pack_q3(q3):
     return _PACK_Q3(q3)
 
 
-def _encode_frames_device_fused(
-    frames_rgb, w, h, nf, max_i_interval, entropy_encode, config, mesh=None,
+def encode_frames_device(
+    frames_rgb: Sequence[np.ndarray],
+    max_i_interval: int | None = None,
+    entropy_encode: Callable[[np.ndarray], bytes] | None = None,
+    config: EncodeConfig | None = None,
+    mesh=None,
     profiler=None,
 ) -> bytes:
-    """encode_frames_device's Pallas path: fused FDCT+quantize windows.
+    """Byte-identical to encode_frames, with the transform on the device.
 
-    The kernel (ops/encode_fused.py) returns ABSOLUTE quantized planes, so
-    the whole select-then-pack back half (candidate sizes, smaller-wins,
-    in-place container assembly) is shared with the host encoder via
-    encode_quantized_frames — byte-identical output by construction.
-    With mesh=, each window's frames shard over the "data" axis via
-    parallel/encode.encode_window_fused_sharded (zero collectives).
+    Pipeline split: the host does colour conversion (float64, must match C
+    doubles — rgb_to_ycbcr.c:64-66) and the serial select-then-pack; the
+    device does FDCT + quantize in jit windows of config.frames_per_batch
+    frames (ops/encode_jax.quantize_window).  The device step returns
+    ABSOLUTE quantized planes, so the whole back half (candidate sizes,
+    smaller-wins frame-type selection, in-place container assembly,
+    mjpeg423_encoder.c:154-185) is shared with the host encoder via
+    encode_quantized_frames — byte-identical output by construction.  Every
+    window ships the full W frames, so every window compiles to ONE shape
+    and host memory stays O(window), not O(clip).
+
+    mesh=...: each window's frames shard over the mesh's "data" axis via
+    parallel/encode.quantize_window_sharded (zero collectives); the window
+    rounds to a multiple of the data-axis size.
 
     config.overlap_device (default True): host convert of window N+1 and
     the serial pack of window N run CONCURRENTLY with the device transform
@@ -529,14 +539,20 @@ def _encode_frames_device_fused(
     and the reference's post-early/join-late structure
     (playback.c:80-134: core1 reads N+1 while core0 transforms N).
     """
+    config = config or EncodeConfig()
+    if max_i_interval is None:
+        max_i_interval = config.max_i_interval
+    entropy_encode = _resolve_entropy_encode(entropy_encode, config)
+    first = np.asarray(frames_rgb[0])
+    h, w = first.shape[:2]
+    if h % 8 or w % 8:
+        raise ValueError(f"dimensions must be multiples of 8, got {w}x{h}")
     import jax
     import jax.numpy as jnp
 
-    from ..ops.encode_fused import (
-        auto_rows_per_step_encode,
-        encode_window_fused,
-    )
+    from ..ops.encode_jax import quantize_window
 
+    nf = len(frames_rgb)
     bh, bw = h // 8, w // 8
     nb = bh * bw
     W = max(1, min(int(config.frames_per_batch), nf))
@@ -545,7 +561,6 @@ def _encode_frames_device_fused(
 
         n_data = mesh.shape[DATA_AXIS]
         W = max(W, n_data) // n_data * n_data  # window divisible by shards
-    k = auto_rows_per_step_encode(bh, bw)
     prof = profiler or default_profiler
 
     def transform(stage):
@@ -553,23 +568,16 @@ def _encode_frames_device_fused(
         if mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec as P
 
-            from ..parallel.encode import encode_window_fused_sharded
+            from ..parallel.encode import quantize_window_sharded
             from ..parallel.mesh import DATA_AXIS
 
             d_stage = jax.device_put(
-                jnp.asarray(stage),
-                NamedSharding(mesh, P(None, DATA_AXIS)),
+                stage, NamedSharding(mesh, P(None, DATA_AXIS)),
             )
-            return encode_window_fused_sharded(
-                d_stage, mesh=mesh, blocks_h=bh, blocks_w=bw,
-                rows_per_step=k,
-            )
-        return encode_window_fused(
-            jnp.asarray(stage), blocks_h=bh, blocks_w=bw, rows_per_step=k,
-        )
+            return quantize_window_sharded(d_stage, mesh=mesh)
+        return quantize_window(jnp.asarray(stage))
 
-    # fetch_i8 (decode-side pack_i8's mirror, DESIGN §5 roadmap item):
-    # narrow the quantized planes ON DEVICE to int16 DC + int8 AC before
+    # fetch_i8: narrow the quantized planes ON DEVICE to int16 DC + int8 AC before
     # D2H, halving the dominant transfer of the device-assisted encode
     # (quantized AC of real content rarely leaves int8; a per-window
     # overflow flag falls back to the full int16 fetch, byte-identical
@@ -697,10 +705,7 @@ def _encode_frames_device_fused(
                             payload = transform(stage)
                             async_arrs = (payload,)
                         for arr in async_arrs:
-                            try:
-                                arr.copy_to_host_async()
-                            except AttributeError:
-                                pass  # non-Array (interpret fallback)
+                            arr.copy_to_host_async()
                     if not _put_or_drop((count, stage, payload)):
                         return
             except BaseException as e:  # noqa: BLE001 — propagate to packer
@@ -742,204 +747,3 @@ def _encode_frames_device_fused(
         gen(), w, h, max_i_interval, entropy_encode, config,
         profiler=profiler,
     )
-
-
-def encode_frames_device(
-    frames_rgb: Sequence[np.ndarray],
-    max_i_interval: int | None = None,
-    entropy_encode: Callable[[np.ndarray], bytes] | None = None,
-    parallel_entropy: bool = True,
-    config: EncodeConfig | None = None,
-    mesh=None,
-    use_pallas: bool | None = None,
-    profiler=None,
-) -> bytes:
-    """Byte-identical to encode_frames, with the transform on the device.
-
-    Pipeline split: host does color conversion (float64, must match C
-    doubles — rgb_to_ycbcr.c:64-66) and the serial entropy pack; the device
-    does FDCT + quantize + I/P differencing in jit batches of
-    config.frames_per_batch frames (ops/encode_jax.py — the encoder has no
-    temporal recurrence, so windows batch-parallelize; slot 0 of each
-    window carries the previous window's last frame as the P-candidate
-    halo, so every batch compiles to ONE shape and host memory stays
-    O(window), not O(clip)).  Frame-type selection stays on the host (it
-    needs candidate byte sizes; mjpeg423_encoder.c:154-185).
-
-    mesh=...: shard the transform's frame axis over the mesh's "data" axis
-    (parallel/encode.py — one neighbor ppermute carries the P-candidate
-    halo).  This batch path stages the WHOLE clip (sharding wants all
-    frames at once); output is byte-identical to the windowed path.
-
-    use_pallas: run the fused FDCT+quantize kernel (ops/encode_fused.py)
-    instead of the XLA transform; None (default) auto-enables it on TPU
-    when the native C packer is available (the fused path packs through
-    encode_quantized_frames, whose fast path is the C codec).  Works with
-    mesh= too: frames shard over "data" with zero collectives.
-    """
-    import jax.numpy as jnp
-
-    from ..ops import encode_jax
-
-    config = config or EncodeConfig()
-    prof = profiler or default_profiler
-    if max_i_interval is None:
-        max_i_interval = config.max_i_interval
-    entropy_encode = _resolve_entropy_encode(entropy_encode, config)
-    first = np.asarray(frames_rgb[0])
-    h, w = first.shape[:2]
-    if h % 8 or w % 8:
-        raise ValueError(f"dimensions must be multiples of 8, got {w}x{h}")
-
-    nf = len(frames_rgb)
-    if use_pallas is None:
-        import jax
-
-        # Auto on TPU, mesh or not: the fused kernel beats the XLA
-        # transform either way, and its sharded wrapper needs no halo.
-        # Requires the native packer — the fused path's select-then-pack
-        # back half is serial in pure Python, which would silently drop
-        # the XLA path's thread-pooled entropy packing.
-        use_pallas = (
-            jax.default_backend() == "tpu" and centropy.native_available()
-        )
-    if use_pallas:
-        # Fused Pallas FDCT+quantize (ops/encode_fused.py) feeding the
-        # shared select-then-pack back half — byte-identical, one HBM pass.
-        # With mesh=: frames shard over "data" with ZERO collectives (the
-        # kernel emits absolute planes; all differencing is in the packer).
-        return _encode_frames_device_fused(
-            frames_rgb, w, h, nf, max_i_interval, entropy_encode, config,
-            mesh=mesh, profiler=profiler,
-        )
-    names = ("y", "cb", "cr")
-    ex = None
-    if parallel_entropy:
-        from concurrent.futures import ThreadPoolExecutor
-
-        ex = ThreadPoolExecutor()
-    try:
-        if mesh is None:
-            # Windowed transform: stage W+1 blocked-plane slots (halo + W
-            # frames), transform on device, pack that window, advance.
-            nb = (h // 8) * (w // 8)
-            W = max(1, min(int(config.frames_per_batch), nf))
-            stage = {n: np.zeros((W + 1, nb, 8, 8), np.uint8) for n in names}
-            scratch: dict = {}
-            bits_i: dict = {}
-            bits_p: dict = {}
-            for ws in range(0, nf, W):
-                count = min(W, nf - ws)
-                with prof.time("encode/convert"):
-                    for k in range(count):
-                        yb, cbb, crb = _rgb_to_blocked_planes(
-                            frames_rgb[ws + k], scratch
-                        )
-                        np.copyto(stage["y"][k + 1], yb)
-                        np.copyto(stage["cb"][k + 1], cbb)
-                        np.copyto(stage["cr"][k + 1], crb)
-                with prof.time("encode/device_transform"):
-                    ci_d, cp_d = encode_jax.encode_transform(
-                        jnp.asarray(stage["y"]), jnp.asarray(stage["cb"]),
-                        jnp.asarray(stage["cr"]),
-                    )
-                # ci rows 1..count = frames ws..ws+count-1; cp row k is
-                # batch frame k+1 vs k = global frame ws+k vs predecessor
-                # (the halo makes row 0 valid for every window but the
-                # first, where frame 0 has no predecessor).
-                ci = {n: np.asarray(v) for n, v in ci_d.items()}
-                cp = {n: np.asarray(v) for n, v in cp_d.items()}
-                jobs_i = [(ws + k, n) for k in range(count) for n in names]
-                jobs_p = [
-                    (ws + k, n)
-                    for k in range(count) if ws + k > 0
-                    for n in names
-                ]
-
-                def _enc_i(job, _ci=ci, _ws=ws):
-                    fi, n = job
-                    return entropy_encode(_ci[n][fi - _ws + 1])
-
-                def _enc_p(job, _cp=cp, _ws=ws):
-                    fi, n = job
-                    return entropy_encode(_cp[n][fi - _ws])
-
-                with prof.time("encode/pack"):
-                    if ex is not None:
-                        bits_i.update(zip(jobs_i, ex.map(_enc_i, jobs_i)))
-                        bits_p.update(zip(jobs_p, ex.map(_enc_p, jobs_p)))
-                    else:
-                        bits_i.update((j, _enc_i(j)) for j in jobs_i)
-                        bits_p.update((j, _enc_p(j)) for j in jobs_p)
-                for n in names:  # halo for the next window
-                    np.copyto(stage[n][0], stage[n][count])
-        else:
-            from ..parallel.encode import encode_transform_sharded, shard_samples
-            from ..parallel.mesh import DATA_AXIS
-
-            planes = {n: [] for n in names}
-            for rgb in frames_rgb:
-                yb, cbb, crb = _rgb_to_blocked_planes(rgb)
-                for name, blk in (("y", yb), ("cb", cbb), ("cr", crb)):
-                    planes[name].append(blk)
-            n_data = mesh.shape[DATA_AXIS]
-            pad = (-nf) % n_data
-            host = {}
-            for n, v in planes.items():
-                arr = np.stack(v)
-                if pad:
-                    arr = np.concatenate(
-                        [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)]
-                    )
-                host[n] = arr
-            args = shard_samples(mesh, host["y"], host["cb"], host["cr"])
-            cand_i, cand_p = encode_transform_sharded(*args, mesh=mesh)
-            cand_i = {n: np.asarray(v)[:nf] for n, v in cand_i.items()}
-            # cand_p is frame-indexed (row 0 unused)
-            cand_p = {n: np.asarray(v)[:nf] for n, v in cand_p.items()}
-
-            jobs_i = [(fi, n) for fi in range(nf) for n in names]
-            jobs_p = [(fi, n) for fi in range(1, nf) for n in names]
-
-            def _enc_i(job):
-                fi, n = job
-                return entropy_encode(cand_i[n][fi])
-
-            def _enc_p(job):
-                fi, n = job
-                return entropy_encode(cand_p[n][fi])
-
-            with prof.time("encode/pack"):
-                if ex is not None:
-                    bits_i = dict(zip(jobs_i, ex.map(_enc_i, jobs_i)))
-                    bits_p = dict(zip(jobs_p, ex.map(_enc_p, jobs_p)))
-                else:
-                    bits_i = {j: _enc_i(j) for j in jobs_i}
-                    bits_p = {j: _enc_p(j) for j in jobs_p}
-    finally:
-        if ex is not None:
-            ex.shutdown()
-
-    out_frames: list[Frame] = []
-    last_iframe = 0
-    for fi in range(nf):
-        size_i = sum(len(bits_i[(fi, n)]) for n in names)
-        size_p = (
-            sum(len(bits_p[(fi, n)]) for n in names) if fi > 0 else None
-        )
-        pick_i = (
-            fi == 0
-            or size_p is None
-            or size_i <= size_p
-            or fi - last_iframe >= max_i_interval
-        )
-        src = bits_i if pick_i else bits_p
-        if pick_i:
-            last_iframe = fi
-        out_frames.append(
-            Frame(
-                T.FRAME_TYPE_I if pick_i else T.FRAME_TYPE_P,
-                src[(fi, "y")], src[(fi, "cb")], src[(fi, "cr")],
-            )
-        )
-    return serialize_file(w, h, out_frames)

@@ -15,7 +15,7 @@ coding + smaller-wins selection, mjpeg423_encoder.c:154-185).  No DCT, no
 re-quantization, no quality change: decoded RGBA output is bit-identical
 (tests/test_transcode.py proves it against the compiled reference decoder).
 
-Why it matters on TPU: GOPs are the unit of sharding and seeking.  A legacy
+Why it matters on a device mesh: GOPs are the unit of sharding and seeking.  A legacy
 single-GOP (or sparse-I) stream cannot be partitioned across chips or
 seeked; regop(data, max_i_interval=N) makes it shardable/seekable at a cost
 of slightly larger I frames, in one host-side pass at entropy-parse speed.

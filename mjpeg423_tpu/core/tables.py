@@ -3,7 +3,7 @@
 Numerically normative values matching the reference implementation
 (reference: core0/software/common/libs/mjpeg423/common/tables.c:13-42 and
 common/dct_math.h:50-64).  Everything here is a plain NumPy constant so both
-the host-side (NumPy / C) and device-side (JAX / Pallas) paths share one
+the host-side (NumPy / C) and device-side (JAX) paths share one
 source of truth.
 """
 from __future__ import annotations

@@ -12,7 +12,7 @@
  * Decode output convention matches ops/entropy_ref.py: dense (num_blocks, 64)
  * int16 natural-order AMPLITUDES with the I-frame DC block-to-block cumsum
  * applied (int16 wraparound).  Dequantization and P accumulation happen on
- * the TPU.
+ * the device.
  *
  * Build: compiled with -fwrapv so signed overflow wraps (the reference
  * depends on two's-complement wrap on Nios II).
@@ -985,9 +985,9 @@ MJ_EXPORT int mj423_decode_plane_spec(const uint8_t* bits, size_t bits_len,
 
 /* ------------------------------------------------------------------ */
 /* Coefficient-major (cm) decode: one plane into out[64][num_blocks]
- * int16 — coefficient index major, block index minor.  This is the fused
- * TPU kernel's natural layout (ops/transform_fused.py: butterflies want
- * (coef-sublane, block-lane) tiles).
+ * int16 — coefficient index major, block index minor: the layout a device
+ * kernel that vectorizes over blocks wants (no decode path consumes it
+ * now; kept with its tests).
  *
  * Direct scatter into that layout is STORE-BOUND: each block's ~16
  * nonzero coefficients land 2*row_blocks bytes apart, so every store
@@ -1374,8 +1374,8 @@ MJ_EXPORT int mj423_decode_batch_cm(const uint8_t* data,
 /*
  * Packed-format decode: one plane into int16 DC (dc[num_blocks]) + int8 AC
  * (ac[num_blocks*64], position 0 zeroed) — the compressed device input
- * format (ops/transform_fused.py decode_window_fused_i8: 66 B/block of HBM
- * traffic instead of 128).  Returns 0 on success, -1 on corrupt stream,
+ * format (66 B/block of host->device traffic instead of 128; no decode
+ * path consumes it now; kept with its tests).  Returns 0 on success, -1 on corrupt stream,
  * +1 when any AC amplitude exceeds int8 (caller falls back to the int16
  * decoder; VLI amplitudes reach +/-2047 but quantized AC of real content
  * rarely does).
@@ -1746,11 +1746,9 @@ MJ_EXPORT long mj423_encode_plane(const int16_t* coeffs, int num_blocks,
 }
 
 /*
- * Blocked->raster frame conversion (the host-side half of the decode
- * output path).  The fused TPU kernel emits frames in its blocked layout
- * [wf][8 outcol][g][8 row][bwe] (ops/transform_fused.py, raster=False) —
- * the on-device XLA transpose of this pattern measures ~45x the kernel
- * itself, so the permutation happens here after transfer instead.
+ * Blocked->raster frame conversion on the host, for frames in the blocked
+ * layout [wf][8 outcol][g][8 row][bwe] (no decode path produces it now;
+ * kept with its test).
  * Per (frame, group, fold, row): 8 sequential source streams (one per
  * outcol plane) interleave into one sequential destination row — every
  * access is a unit-stride stream, OpenMP over frames x groups.

@@ -24,6 +24,7 @@ _BUILD = _HERE / "_build"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
+_RUNGS = ("march-native+openmp", "openmp", "march-native", "plain")
 
 
 def _cpu_fingerprint() -> str:
@@ -89,13 +90,15 @@ def _build() -> pathlib.Path | None:
     # oracle and the reference's strict-IEEE expressions.
     base = [cc, "-O3", "-std=c11", "-fwrapv", "-ffp-contract=off", "-fPIC",
             "-shared", "-o", str(so_tmp), str(_SRC)]
-    # Build ladder: native ISA + OpenMP -> OpenMP -> plain.  -march=native
-    # is safe here because the library is always compiled on the machine
-    # that runs it (on-demand build); OpenMP parallelizes the batch decode
-    # across frame-plane items.
+    # Build ladder: native ISA + OpenMP -> OpenMP -> native ISA -> plain.
+    # -march=native is safe here because the library is always compiled on
+    # the machine that runs it (on-demand build); OpenMP parallelizes the
+    # batch decode across frame-plane items.  A compiler without libgomp
+    # fails both OpenMP rungs and still gets the SIMD parser.
     attempts = (
         base + ["-march=native", "-fopenmp"],
         base + ["-fopenmp"],
+        base + ["-march=native"],
         base,
     )
     first_err = None
@@ -115,7 +118,7 @@ def _build() -> pathlib.Path | None:
                     tail = (first_err or b"").decode(errors="replace")[-400:]
                     warnings.warn(
                         f"centropy: native-ISA build rung failed; using rung "
-                        f"{rung} ({'openmp' if rung == 1 else 'plain'}). "
+                        f"{rung} ({_RUNGS[rung]}). "
                         f"First rung stderr tail: {tail}",
                         RuntimeWarning,
                         stacklevel=2,
@@ -130,6 +133,7 @@ def _build() -> pathlib.Path | None:
         os.replace(so_tmp, so)
     finally:
         so_tmp.unlink(missing_ok=True)  # no-op after a successful replace
+    (_BUILD / "rung").write_text(_RUNGS[rung])
     stamp.write_text(want)
     return so
 
@@ -245,6 +249,17 @@ def _load() -> ctypes.CDLL | None:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def build_rung() -> str | None:
+    """Which rung of the build ladder produced the loaded library
+    ("march-native+openmp", "openmp" or "plain"); None without one."""
+    if _load() is None:
+        return None
+    try:
+        return (_BUILD / "rung").read_text()
+    except OSError:
+        return None
 
 
 def _as_cbuf(data):
@@ -390,9 +405,10 @@ def decode_batch_cm(
 ) -> np.ndarray | None:
     """Coefficient-major batch decode: (N, bh, 64, bw) int16.
 
-    The fused kernel's native layout (no in-VMEM transposes); None when the
-    native codec is unavailable (callers fall back to block-major + the
-    transposing kernel).
+    Coefficients of one block-row are contiguous per coefficient index
+    (block index fastest).  No decode path consumes this layout now; it
+    stays with its tests as a candidate input layout for a device kernel.
+    None when the native codec is unavailable.
     """
     lib = _load()
     if lib is None:
@@ -429,8 +445,9 @@ def decode_batch_i8(
 
     Returns None when the native codec is unavailable OR any AC amplitude
     exceeds int8 (caller falls back to decode_batch); raises on corrupt
-    streams.  This is the zero-extra-cost producer for the compressed fused
-    kernel (decode_window_fused_i8).  `out` reuses a (dc, ac) buffer pair
+    streams.  Half the host->device bytes of decode_batch; no decode path
+    consumes it now (it stays, with its tests, as the producer for an int8
+    device input).  `out` reuses a (dc, ac) buffer pair
     across calls (the production buffer-ring pattern — fresh 100 MB numpy
     buffers per 1080p window were measured to halve the lanes rate via
     page-fault churn).
@@ -517,7 +534,8 @@ def blocked_to_raster(
     """Native blocked->raster frame conversion (OpenMP streams).
 
     blocked: (W, 8, g, 8, bwe) uint32 with bwe = (blocks_h // g) * blocks_w
-    (the fused kernel's raster=False output, rows_per_step fold included).
+    (a blocked frame layout with k = blocks_h // g block-rows folded per
+    group).  No decode path produces this layout now; kept with its test.
     Returns (W, blocks_h*8, blocks_w*8) uint32, or None when the native
     codec is unavailable (caller falls back to the NumPy permutation).
     """

@@ -1,4 +1,4 @@
-"""JAX device encode transform: FDCT + quantize + I/P differentials.
+"""JAX device encode step: FDCT + exact quantize.
 
 The device half of the encoder (the host half is color conversion — kept in
 NumPy float64 for bit-exactness with C doubles, rgb_to_ycbcr.c:58-70 — and
@@ -6,18 +6,18 @@ the serial entropy pack).  Everything here is exact integer arithmetic:
 
   * LL&M forward DCT: int32 adds/mults/shifts with int16 stores between
     passes (reference: encoder/fdct.c:17-161) — same modular semantics as
-    the reference, batched over (F, B) on the VPU.
+    the reference, batched over (F, B).
   * Quantization: round-half-away-from-zero division computed exactly in
     integers: sign(c) * ((2|c| + q) // (2q)).  This equals C's
     round((double)c / q) for all int16 c and the table's q <= 121, because
     the true quotient is never within a double ulp of a half-integer unless
     it IS one (denominators are tiny), so both round identically
     (reference: quantize.c:16).
-  * I-frame DC differential along blocks and P differential along frames are
-    shifts + subtracts — the encoder has NO temporal recurrence (the
-    reference's prev/next buffer dance, mjpeg423_encoder.c:154-185, keeps
-    plain per-frame quantized states), so the whole transform is
-    frame-parallel.
+  * The I-frame DC differential along blocks and the P differential along
+    frames are applied by the host packer from these absolute planes — the
+    encoder has NO temporal recurrence (the reference's prev/next buffer
+    dance, mjpeg423_encoder.c:154-185, keeps plain per-frame quantized
+    states), so the whole device step is frame-parallel.
 """
 from __future__ import annotations
 
@@ -111,41 +111,19 @@ def quantize(coeffs: jnp.ndarray, quant64: jnp.ndarray) -> jnp.ndarray:
     return (jnp.sign(c) * mag).astype(jnp.int16)
 
 
-def diff_dc_i(q: jnp.ndarray) -> jnp.ndarray:
-    """I-candidate: DC differential along the block axis (quantize.c:18-25).
+@jax.jit
+def quantize_window(samples: jnp.ndarray) -> jnp.ndarray:
+    """Device encode step: FDCT + exact quantize of a frame window.
 
-    q: (..., B, 64) int16.
-    """
-    dc = q[..., 0]
-    ddc = dc.at[..., 1:].set((dc[..., 1:] - dc[..., :-1]).astype(jnp.int16))
-    return q.at[..., 0].set(ddc)
-
-
-def diff_p(q: jnp.ndarray) -> jnp.ndarray:
-    """P-candidates for frames 1..F-1: q[t] - q[t-1] (quantize.c:33-42).
-
-    q: (F, B, 64) int16.  Returns (F-1, B, 64) int16.
-    """
-    return (q[1:] - q[:-1]).astype(jnp.int16)
-
-
-@functools.partial(jax.jit)
-def encode_transform(y: jnp.ndarray, cb: jnp.ndarray, cr: jnp.ndarray):
-    """Device encode step: YCbCr sample blocks -> I and P candidate tensors.
-
-    y/cb/cr: (F, B, 8, 8) uint8 sample blocks.
-    Returns dict with, per plane p in (y, cb, cr):
-      cand_i[p]: (F, B, 64) int16 I-candidate (DC-diffed) amplitudes
-      cand_p[p]: (F-1, B, 64) int16 P-candidate deltas (for frames 1..F-1)
-    The host entropy-packs both and picks the smaller per frame
-    (mjpeg423_encoder.c:154-185 selection).
+    samples: (3, W, B, 64) uint8 blocked Y/Cb/Cr sample planes (each 8x8
+    block flattened row-major).  Returns (3, W, B, 64) int16 ABSOLUTE
+    quantized amplitudes — the encoder's round(coef/quant) state.  No I-DC
+    chain and no P differencing: the host packer (encoder.FramePacker)
+    applies both inline, so every frame and block is independent here.
     """
     yq, cq = quant_tensors()
-    cand_i = {}
-    cand_p = {}
-    for name, samples, q in (("y", y, yq), ("cb", cb, cq), ("cr", cr, cq)):
-        coefs = fdct_blocks(samples).reshape(samples.shape[:-2] + (64,))
-        qs = quantize(coefs, q)
-        cand_i[name] = diff_dc_i(qs)
-        cand_p[name] = diff_p(qs)
-    return cand_i, cand_p
+    blocks = samples.reshape(samples.shape[:-1] + (8, 8))
+    return jnp.stack([
+        quantize(fdct_blocks(blocks[p]).reshape(samples.shape[1:]), q)
+        for p, q in ((0, yq), (1, cq), (2, cq))
+    ])

@@ -22,7 +22,7 @@ Decode output convention: a dense (num_blocks, 64) int16 array of *amplitudes*
 in natural (row-major) order, with the I-frame DC block-to-block cumulative sum
 already applied (int16 wraparound, matching the reference's DCTELEM `cur`
 accumulator, lossless_decode.c:75,94).  Dequantization / P-frame accumulation
-are NOT applied here — they are elementwise integer ops that run on the TPU:
+are NOT applied here — they are elementwise integer ops that run on the device:
 
   I-frame:  state  = amps * quant     (int16 modular arithmetic)
   P-frame:  state += amps * quant

@@ -9,11 +9,7 @@ transfer cuts egress 4^j x for thumbnail farms and preview scrubbing.
 Semantics (beyond-reference, so chosen rather than ported): per channel,
 each output pixel is the rounded mean of an f x f input box —
 (sum + f*f/2) >> log2(f*f), i.e. round-half-up.  f must divide 8 so boxes
-never straddle 8x8 blocks: the blocked kernel layout downscales with pure
-reshapes (no cross-block gathers), and the device raster transpose that
-made full-res on-device rasterization a loser (~85 ms per 16-frame 1080p
-batch, DESIGN.md roadmap) shrinks by f^2 — the downscaled path emits
-raster directly.
+never straddle 8x8 blocks.
 """
 from __future__ import annotations
 
@@ -43,33 +39,6 @@ def _avg_pack(channels, f: int, jnp):
         v = (ch + half) >> shift
         out = v << s if out is None else out | (v << s)
     return out
-
-
-def downscale_blocked(x, blocks_h: int, blocks_w: int, f: int):
-    """Blocked kernel output -> downscaled RASTER frames, on device.
-
-    x: (W, 8[col], bh/k, 8[row], k*bw) uint32 packed BGRA (the fused
-    kernel's raster=False layout, any rows_per_step fold k).  Returns
-    (W, bh*8/f, bw*8/f) uint32.  Pixel row = (g*k + kk)*8 + row and
-    col = bwi*8 + col (blocked_to_raster_host's unfold), so with f | 8
-    the box sum is two in-block reshape-sums; the final transpose runs on
-    f^2 fewer pixels than a full-res device rasterization.
-    """
-    import jax.numpy as jnp
-
-    _check_factor(f)
-    w, _, g, _, kbw = x.shape
-    k = blocks_h // g
-    r = 8 // f
-    x7 = x.reshape(w, r, f, g, r, f, k, blocks_w)
-    chans = [
-        ((x7 >> s) & jnp.uint32(0xFF)).sum(axis=(2, 5), dtype=jnp.uint32)
-        for s in _SHIFTS
-    ]  # each (w, r[col], g, r[row], k, bw)
-    out = _avg_pack(chans, f, jnp)
-    return out.transpose(0, 2, 4, 3, 5, 1).reshape(
-        w, blocks_h * r, blocks_w * r
-    )
 
 
 def downscale_raster(x, f: int):

@@ -1,14 +1,13 @@
 """JAX device transform: dequant -> temporal scan -> IDCT -> color, bit-exact.
 
-This is the jit-compiled XLA path of the decode transform (the Pallas kernel
-in transform_pallas.py is the hand-tuned variant; this one is the always-
-available fallback and the compilation reference).  All arithmetic is exact
-modular integer math mirroring the C semantics — see ops/transform_ref.py for
-the stage-by-stage reference citations.
+This is the jit-compiled XLA device step of the decoder: the one device path
+on every backend.  All arithmetic is exact modular integer math mirroring the
+C semantics — see ops/transform_ref.py for the stage-by-stage reference
+citations.
 
-Design notes (TPU-first):
+Design notes:
   * Everything is batched over the block axis: (F, B, 64) coefficient tensors,
-    elementwise int32 ops vectorize on the VPU; there is no per-block Python.
+    elementwise int32 ops that XLA fuses; there is no per-block Python.
   * The P-frame recurrence S_t = S_{t-1} + D_t (int16, wrapping) is a
     *segmented prefix sum* over the frame axis, with segments reset at
     I-frames (reference: lossless_decode.c:76-128 — I zeroes state, P
@@ -41,11 +40,16 @@ def dequantize(amps: jnp.ndarray, quant64: jnp.ndarray) -> jnp.ndarray:
     return (amps.astype(jnp.int16) * quant64.astype(jnp.int16)).astype(jnp.int16)
 
 
-def segmented_scan(deltas: jnp.ndarray, is_iframe: jnp.ndarray) -> jnp.ndarray:
-    """Per-frame coefficient states via a segmented int16 prefix sum.
+def segmented_scan_flags(
+    deltas: jnp.ndarray, is_iframe: jnp.ndarray
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Segmented int16 prefix sum, also returning the seen-I flags.
 
     deltas: (F, ...) int16 per-frame dequantized deltas (an I-frame's delta IS
-    its full state).  is_iframe: (F,) bool.  Returns (F, ...) int16 states.
+    its full state).  is_iframe: (F,) bool.  Returns (vals, seen), both
+    (F, ...): vals the int16 states, seen[f] = any(is_iframe[:f+1]) — whether
+    frame f's state is already absolute (frames before the first I-frame
+    still need the previous window's carry added).
 
     The combine op ((v1,s1),(v2,s2)) -> (s2 ? v2 : v1+v2, s1|s2) is
     associative, so this parallelizes the sequential recurrence exactly
@@ -60,7 +64,12 @@ def segmented_scan(deltas: jnp.ndarray, is_iframe: jnp.ndarray) -> jnp.ndarray:
         bv, bseg = b
         return jnp.where(bseg, bv, (av + bv).astype(jnp.int16)), aseg | bseg
 
-    vals, _ = jax.lax.associative_scan(combine, (deltas, seg), axis=0)
+    return jax.lax.associative_scan(combine, (deltas, seg), axis=0)
+
+
+def segmented_scan(deltas: jnp.ndarray, is_iframe: jnp.ndarray) -> jnp.ndarray:
+    """Per-frame coefficient states (segmented_scan_flags without flags)."""
+    vals, _ = segmented_scan_flags(deltas, is_iframe)
     return vals
 
 
@@ -201,3 +210,36 @@ def decode_transform_states(
         planes.append(idct_blocks(st.reshape(shape)))
     rgba = ycbcr_to_rgba(*planes)
     return blocks_to_raster(rgba, blocks_h, blocks_w)
+
+
+@functools.partial(jax.jit, static_argnames=("blocks_h", "blocks_w"))
+def decode_window(
+    amps: jnp.ndarray,
+    seg: jnp.ndarray,
+    carry: jnp.ndarray,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """The streaming pipeline's device step: one window with state carry.
+
+    amps:  (3, W, B, 64) int16 entropy-decoded amplitudes (Y, Cb, Cr).
+    seg:   (W,) bool I-frame mask.
+    carry: (3, B, 64) int16 coefficient state of the frame before the window
+           (zeros for a stream's first window — its leading I-frame
+           overwrites it).
+    Returns (frames (W, H, Wd) uint32 raster, new carry (3, B, 64) int16).
+    Window boundaries need no GOP alignment: the carry is exact.
+    """
+    yq, cq = quant_tensors()
+    states = []
+    for p, q in ((0, yq), (1, cq), (2, cq)):
+        vals, seen = segmented_scan_flags(dequantize(amps[p], q), seg)
+        # Frames before the window's first I-frame continue from carry.
+        states.append(
+            jnp.where(seen, vals, (carry[p][None] + vals).astype(jnp.int16))
+        )
+    frames = decode_transform_states(
+        *states, blocks_h=blocks_h, blocks_w=blocks_w
+    )
+    return frames, jnp.stack([s[-1] for s in states])

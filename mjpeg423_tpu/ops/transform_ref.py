@@ -1,6 +1,6 @@
 """Bit-exact NumPy reference for the decode transform: dequant, IDCT, color.
 
-This is the correctness oracle for the JAX / Pallas device kernels.  All
+This is the correctness oracle for the JAX device steps.  All
 arithmetic reproduces the reference's C semantics exactly:
 
   * int16 (DCTELEM) modular arithmetic for dequantization / P-accumulation

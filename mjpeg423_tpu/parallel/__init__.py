@@ -2,11 +2,9 @@ from .mesh import BLOCK_AXIS, DATA_AXIS, make_mesh
 from .decode import (
     decode_stream_sharded,
     decode_transform_sharded,
-    decode_transform_sharded3,
-    decode_transform_sharded_cm,
     shard_inputs,
 )
-from .encode import encode_transform_sharded
+from .encode import quantize_window_sharded
 from .temporal import sharded_segmented_scan
 
 __all__ = [
@@ -14,10 +12,8 @@ __all__ = [
     "DATA_AXIS",
     "make_mesh",
     "decode_stream_sharded",
-    "encode_transform_sharded",
+    "quantize_window_sharded",
     "decode_transform_sharded",
-    "decode_transform_sharded3",
-    "decode_transform_sharded_cm",
     "shard_inputs",
     "sharded_segmented_scan",
 ]

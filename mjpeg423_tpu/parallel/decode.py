@@ -22,27 +22,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import transform_fused, transform_jax, transform_pallas
+from ..ops import transform_jax
 from .mesh import BLOCK_AXIS, DATA_AXIS
 from .temporal import _local_scan, _sharded_scan_body
 
 
-def _transform_states(states, blocks_h, blocks_w, use_pallas, interpret):
-    if use_pallas:
-        return transform_pallas.decode_transform_states_pallas(
-            *states, blocks_h=blocks_h, blocks_w=blocks_w, interpret=interpret
-        )
-    return transform_jax.decode_transform_states(
-        *states, blocks_h=blocks_h, blocks_w=blocks_w
-    )
-
-
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "blocks_h", "blocks_w", "gop_aligned", "use_pallas",
-        "interpret", "raster",
-    ),
+    jax.jit, static_argnames=("mesh", "blocks_h", "blocks_w", "gop_aligned"),
 )
 def decode_transform_sharded(
     amps_y: jnp.ndarray,
@@ -54,9 +40,6 @@ def decode_transform_sharded(
     blocks_h: int,
     blocks_w: int,
     gop_aligned: bool = False,
-    use_pallas: bool | None = None,
-    interpret: bool | None = None,
-    raster: bool = True,
 ) -> jnp.ndarray:
     """Sharded decode: (F, B, 64) int16 amplitudes x3 -> (F, H, W) uint32.
 
@@ -64,10 +47,6 @@ def decode_transform_sharded(
     data-axis size and B by the block-axis size.  gop_aligned=True asserts
     every data-shard starts with an I-frame (skips the carry exchange);
     callers that shard by GOP boundaries should pass it for zero collectives.
-
-    use_pallas=None resolves to the auto default: the fused Pallas kernel on
-    TPU, the XLA path elsewhere (forcing True off-TPU runs the slow Pallas
-    interpreter — tests only).
 
     The block->raster reassembly needs whole block-rows per device, so inside
     each shard the frame is built from the local block range; the output
@@ -83,29 +62,6 @@ def decode_transform_sharded(
         raise ValueError(
             f"blocks_h {blocks_h} must divide by block-axis size {n_block}"
         )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-
-    if use_pallas and (gop_aligned or n_data == 1):
-        # Delegate to the single fused implementation: one global stack
-        # (XLA emits it sharded), then the stacked shard_map entry.
-        return decode_transform_sharded3(
-            jnp.stack([amps_y, amps_cb, amps_cr]), is_iframe,
-            mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-            interpret=interpret, raster=raster,
-        )
-
-    if not raster:
-        # Only the fused delegation above can emit the blocked layout; the
-        # XLA / cross-device-carry paths below are structurally raster
-        # (out_specs are 3-D).  Returning raster under raster=False would
-        # hand the caller the wrong layout silently.
-        raise ValueError(
-            "raster=False requires the fused kernel path (use_pallas=True "
-            "with gop_aligned=True or n_data == 1); the XLA and "
-            "cross-device-carry paths produce raster frames only"
-        )
-
     yq, cq = transform_jax.quant_tensors()
 
     def body(ay, acb, acr, seg):
@@ -117,8 +73,8 @@ def decode_transform_sharded(
             else:
                 vals = _sharded_scan_body(deltas, seg, n_data)
             states.append(vals)
-        return _transform_states(
-            states, local_rows, blocks_w, use_pallas, interpret
+        return transform_jax.decode_transform_states(
+            *states, blocks_h=local_rows, blocks_w=blocks_w
         )
 
     fn = jax.shard_map(
@@ -131,140 +87,8 @@ def decode_transform_sharded(
             P(DATA_AXIS),
         ),
         out_specs=P(DATA_AXIS, BLOCK_AXIS, None),
-        # pallas_call out_shapes carry no varying-mesh-axis info; skip the
-        # vma check (shardings are fully explicit here anyway).
-        check_vma=False,
     )
     return fn(amps_y, amps_cb, amps_cr, is_iframe)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "blocks_h", "blocks_w", "interpret", "raster",
-                     "rows_per_step"),
-)
-def decode_transform_sharded3(
-    amps3: jnp.ndarray,
-    is_iframe: jnp.ndarray,
-    *,
-    mesh: Mesh,
-    blocks_h: int,
-    blocks_w: int,
-    interpret: bool | None = None,
-    raster: bool = False,
-    rows_per_step: int = 0,
-) -> jnp.ndarray:
-    """GOP-aligned fused sharded decode on a pre-stacked (3, F, B, 64) input.
-
-    The 3-array API (decode_transform_sharded) must jnp.stack the planes
-    inside every shard before the fused kernel — a ~1.5x-input-size HBM
-    pass (~40% of kernel time at 1080p).  Callers that already hold the
-    stacked layout (decode_stream_sharded builds one; the host parser
-    emits one) use this entry and skip the copy.  Requires GOP-aligned
-    data shards (every shard's first frame an I-frame) and always runs
-    the fused kernel (XLA/e2e fallbacks live in the 3-array API).
-    """
-    n_data = mesh.shape[DATA_AXIS]
-    n_block = mesh.shape[BLOCK_AXIS]
-    if blocks_h % n_block:
-        raise ValueError(
-            f"blocks_h {blocks_h} must divide by block-axis size {n_block}"
-        )
-    local_rows = blocks_h // n_block
-    if rows_per_step <= 0:
-        # Lane-fold for the BLOCK-MAJOR fused kernel on the per-shard
-        # geometry.  Its VMEM ceiling is lower than the cm variant's
-        # (1080p W=16 k=2 OOMs block-major but compiles cm), so the budget
-        # here is tighter than auto_rows_per_step's: smallest fold
-        # reaching >= 320 lanes with W*k*bw under the measured boundary.
-        w_frames = max(1, int(amps3.shape[1]) // max(n_data, 1))
-        lmax = max(blocks_w, int(5_800_000 // (1280 * w_frames)))
-        rows_per_step = transform_fused.pick_fold(
-            local_rows, blocks_w, target=320, lane_cap=lmax
-        )
-
-    def body(a3, seg):
-        local_b = a3.shape[2]
-        carry = jnp.zeros((3, local_b, 64), dtype=jnp.int16)
-        frames, _ = transform_fused.decode_window_fused(
-            a3, seg, carry,
-            blocks_h=local_rows, blocks_w=blocks_w, interpret=interpret,
-            raster=raster, rows_per_step=rows_per_step,
-        )
-        return frames
-
-    out_spec = (
-        P(DATA_AXIS, BLOCK_AXIS, None) if raster
-        else P(DATA_AXIS, None, BLOCK_AXIS, None, None)
-    )
-    fn = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(None, DATA_AXIS, BLOCK_AXIS, None), P(DATA_AXIS)),
-        out_specs=out_spec,
-        check_vma=False,
-    )
-    return fn(amps3, is_iframe)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "blocks_h", "blocks_w", "interpret", "raster"),
-)
-def decode_transform_sharded_cm(
-    amps_cm: jnp.ndarray,
-    is_iframe: jnp.ndarray,
-    *,
-    mesh: Mesh,
-    blocks_h: int,
-    blocks_w: int,
-    interpret: bool | None = None,
-    raster: bool = False,
-) -> jnp.ndarray:
-    """GOP-aligned sharded decode on COEFFICIENT-MAJOR input.
-
-    amps_cm: (3, F, bh/k, 64, k*bw) int16 — the native parser's
-    decode_batch_cm layout (the fold k is implied by the last dim).  The
-    cm kernel variant both skips the in-shard transpose pass and fits
-    folds the block-major kernel cannot (1080p k=2 compiles cm but OOMs
-    block-major), so this is the fastest sharded entry when the caller
-    holds cm data — which the host parser emits at no extra cost.
-    Frames shard over "data"; requires n_block == 1 (the fold already
-    owns the row grouping) and GOP-aligned shards.
-    """
-    if mesh.shape[BLOCK_AXIS] != 1:
-        raise ValueError("cm sharded entry requires a block axis of 1")
-    n_data = mesh.shape[DATA_AXIS]
-    _, f, groups, _, bw_eff = amps_cm.shape
-    k = bw_eff // blocks_w
-    if groups * k != blocks_h or k * blocks_w != bw_eff:
-        raise ValueError(
-            f"cm layout {amps_cm.shape} inconsistent with "
-            f"blocks_h={blocks_h} blocks_w={blocks_w}"
-        )
-    if f % n_data:
-        raise ValueError(f"frames {f} must divide by data shards {n_data}")
-
-    def body(a, seg):
-        carry = jnp.zeros((3, groups, 64, bw_eff), jnp.int16)
-        frames, _ = transform_fused.decode_window_fused_cm(
-            a, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
-            interpret=interpret, raster=raster, rows_per_step=k,
-        )
-        return frames
-
-    out_spec = (
-        P(DATA_AXIS, None, None) if raster
-        else P(DATA_AXIS, None, None, None, None)
-    )
-    fn = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(None, DATA_AXIS, None, None, None), P(DATA_AXIS)),
-        out_specs=out_spec,
-        check_vma=False,
-    )
-    return fn(amps_cm, is_iframe)
 
 
 def decode_stream_sharded(
@@ -272,8 +96,6 @@ def decode_stream_sharded(
     mesh: Mesh,
     *,
     gop_aligned: bool | None = None,
-    use_pallas: bool | None = None,
-    interpret: bool | None = None,
 ) -> "jnp.ndarray":
     """Whole-container sharded decode: bytes -> (F, H, W) uint32 frames.
 
@@ -282,8 +104,8 @@ def decode_stream_sharded(
     by default whenever the stream has at least one GOP per data shard:
     each shard's frame range starts at an I-frame (multihost.partition_gops,
     balanced by frame count, padded with zero-delta frames to the widest
-    shard), so the temporal scan is shard-local and the fused Pallas kernel
-    runs with zero collectives — the whole-pipeline analog of the
+    shard), so the temporal scan is shard-local and the decode step runs
+    with zero collectives — the whole-pipeline analog of the
     reference's architecture (playback.c:80-134).  gop_aligned=False forces
     equal frame splits with the cross-device carry all-gather instead.
 
@@ -303,7 +125,6 @@ def decode_stream_sharded(
     from ..core.format import index_frames
     from .multihost import partition_gops
     from ..runtime.pipeline import DecodePipeline
-    from ..utils.config import DecodeConfig
 
     n_data = mesh.shape[DATA_AXIS]
     index = index_frames(data)
@@ -318,14 +139,10 @@ def decode_stream_sharded(
         BLOCK_AXIS in mesh.axis_names and mesh.shape[BLOCK_AXIS] > 1
     )
     if gop_aligned and not block_sharded:
-        # The pipeline auto-interprets Pallas off-TPU; interpret=True
-        # therefore means "force the fused kernel" so it stays under test
-        # on CPU even when the caller left use_pallas unset.
-        cfg = DecodeConfig(use_pallas=True if interpret else use_pallas)
-        pipe = DecodePipeline(cfg, mesh=mesh)
+        pipe = DecodePipeline(mesh=mesh)
         return jnp.asarray(pipe.decode_array(data))
 
-    pipe = DecodePipeline(DecodeConfig(coef_major=False))
+    pipe = DecodePipeline()
 
     def parse_range(lo: int, hi: int) -> np.ndarray:
         if hi <= lo:
@@ -346,7 +163,7 @@ def decode_stream_sharded(
         args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
         frames = decode_transform_sharded(
             *args, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-            gop_aligned=False, use_pallas=use_pallas, interpret=interpret,
+            gop_aligned=False,
         )
         return frames[:nf]
 
@@ -356,86 +173,20 @@ def decode_stream_sharded(
     parts = partition_gops(gop_starts, nf, n_data)
     fmax = max(p.num_frames for p in parts)
     nb = index.header.blocks_per_plane
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    from ..native import centropy as _centropy
-
-    use_cm = (
-        use_pallas
-        and mesh.shape[BLOCK_AXIS] == 1
-        and _centropy.native_available()
-    )
     seg = np.zeros(n_data * fmax, dtype=bool)
+    amps = np.zeros((3, n_data * fmax, nb, 64), dtype=np.int16)
     for p in parts:
-        seg[p.host * fmax:p.host * fmax + p.num_frames] = (
-            index.is_iframe[p.frame_lo:p.frame_hi]
-        )
-    if use_cm:
-        # Coefficient-major fast path: the native parser emits the fused
-        # kernel's own layout (no in-shard transposes), and the cm variant
-        # fits the k=2 lane fold the block-major kernel OOMs on at 1080p.
-        from ..runtime.pipeline import auto_rows_per_step
-
-        k = auto_rows_per_step(blocks_h, blocks_w, fmax)
-        g, bwe = blocks_h // k, k * blocks_w
-        amps_cm = np.zeros((3, n_data * fmax, g, 64, bwe), np.int16)
-        for p in parts:
-            if p.num_frames <= 0:
-                continue
-            sl = slice(p.frame_lo, p.frame_hi)
-            offs = index.plane_off[:, sl].reshape(-1)
-            lens_ = index.plane_len[:, sl].reshape(-1)
-            is_p = np.broadcast_to(
-                index.frame_type[sl] != 0, (3, p.num_frames)
-            ).reshape(-1)
-            cm = _centropy.decode_batch_cm(data, offs, lens_, is_p, nb, bwe)
-            amps_cm[:, p.host * fmax:p.host * fmax + p.num_frames] = (
-                cm.reshape(3, p.num_frames, g, 64, bwe)
-            )
-        a3 = jax.device_put(
-            amps_cm, NamedSharding(mesh, P(None, DATA_AXIS))
-        )
-        seg_d = jax.device_put(seg, NamedSharding(mesh, P(DATA_AXIS)))
-        padded = decode_transform_sharded_cm(
-            a3, seg_d, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-            interpret=interpret, raster=False,
-        )
-        amps = None
-    else:
-        amps = np.zeros((3, n_data * fmax, nb, 64), dtype=np.int16)
-        for p in parts:
-            local = parse_range(p.frame_lo, p.frame_hi)
-            amps[:, p.host * fmax:p.host * fmax + p.num_frames] = local
-    if use_pallas and not use_cm:
-        # Stacked fast path: the amps buffer above is already (3, F, B, 64)
-        # — ship it as-is and skip the per-shard plane re-stack.
-        a3 = jax.device_put(
-            amps, NamedSharding(mesh, P(None, DATA_AXIS, BLOCK_AXIS, None))
-        )
-        seg_d = jax.device_put(seg, NamedSharding(mesh, P(DATA_AXIS)))
-        padded = decode_transform_sharded3(
-            a3, seg_d, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-            interpret=interpret, raster=False,
-        )
-    elif not use_pallas:
-        # The XLA path is structurally raster; asking it for the blocked
-        # layout is a ValueError there, so don't.
-        args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
-        padded = decode_transform_sharded(
-            *args, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-            gop_aligned=True, use_pallas=use_pallas, interpret=interpret,
-        )
+        lo, hi = p.host * fmax, p.host * fmax + p.num_frames
+        seg[lo:hi] = index.is_iframe[p.frame_lo:p.frame_hi]
+        amps[:, lo:hi] = parse_range(p.frame_lo, p.frame_hi)
+    args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
+    padded = decode_transform_sharded(
+        *args, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
+        gop_aligned=True,
+    )
     h, w = blocks_h * 8, blocks_w * 8
     out = np.empty((nf, h, w), dtype=np.uint32)
     host = np.asarray(padded)
-    if host.ndim == 5:
-        # Fused path returned the kernel's blocked layout; the raster
-        # permutation is a host memcpy (~45x cheaper than on device).
-        from ..ops.transform_fused import blocked_to_raster_host
-
-        # Pass the true geometry: sharded3's auto fold can return a
-        # rows_per_step > 1 blocked layout.
-        host = blocked_to_raster_host(host, blocks_h, blocks_w)
     for p in parts:
         out[p.frame_lo:p.frame_hi] = host[
             p.host * fmax:p.host * fmax + p.num_frames

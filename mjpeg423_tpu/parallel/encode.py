@@ -1,14 +1,10 @@
-"""Sharded device encode: the encoder transform over a device mesh.
+"""Sharded device encode: the encoder's device step over a device mesh.
 
-The encode transform (FDCT + quantize + I/P differencing,
-ops/encode_jax.py; reference: encoder/fdct.c + quantize.c) has no temporal
-recurrence — the only cross-frame term is the P-candidate's q[t] - q[t-1]
-(quantize.c:33-42).  Sharding frames over the "data" axis therefore needs
-exactly ONE collective: each shard ppermutes its last frame's quantized
-planes to its right neighbor (the halo for the neighbor's first P
-candidate).  This is the encoder-side counterpart of the decoder's
-GOP-carry all-gather (parallel/temporal.py), and the textbook
-boundary-halo pattern for sequence sharding on ICI.
+The device step (FDCT + quantize, ops/encode_jax.quantize_window; reference:
+encoder/fdct.c + quantize.c) emits ABSOLUTE quantized planes and has no
+temporal recurrence — the host packer forms the I-DC chain and the P
+differences (quantize.c:18-42) — so frames shard over the "data" axis with
+no collective at all.
 """
 from __future__ import annotations
 
@@ -16,110 +12,22 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.encode_fused import encode_window_fused
-from ..ops.encode_jax import diff_dc_i, fdct_blocks, quantize
-from ..ops.transform_jax import quant_tensors
+from ..ops.encode_jax import quantize_window
 from .mesh import DATA_AXIS
-
-PLANES = ("y", "cb", "cr")
 
 
 @functools.partial(jax.jit, static_argnames=("mesh",))
-def encode_transform_sharded(
-    y: jnp.ndarray, cb: jnp.ndarray, cr: jnp.ndarray, *, mesh: Mesh
-):
-    """Mesh-sharded encode step: sample blocks -> I and P candidates.
-
-    y/cb/cr: (F, B, 8, 8) uint8, F divisible by the data-axis size.
-    Returns (cand_i, cand_p): per plane, (F, B, 64) int16.  Unlike the
-    single-device encode_transform (which returns F-1 P rows for frames
-    1..F-1), cand_p here is full-length and indexed BY FRAME: cand_p[t] is
-    frame t's delta vs frame t-1; row 0 is meaningless (frame 0 is always
-    an I-frame, mjpeg423_encoder.c:154) and must be ignored.
-    """
-    n_data = mesh.shape[DATA_AXIS]
-
-    def body(yb, cbb, crb):
-        yq, cq = quant_tensors()
-        cand_i = {}
-        cand_p = {}
-        for name, samples, q in (("y", yb, yq), ("cb", cbb, cq), ("cr", crb, cq)):
-            coefs = fdct_blocks(samples).reshape(samples.shape[:-2] + (64,))
-            qs = quantize(coefs, q)
-            cand_i[name] = diff_dc_i(qs)
-            if n_data > 1:
-                # Halo: the previous shard's LAST frame seeds this shard's
-                # first P delta.  One neighbor ppermute over ICI; shard 0
-                # receives zeros (its row 0 is the ignored frame-0 slot).
-                prev_last = jax.lax.ppermute(
-                    qs[-1:], DATA_AXIS,
-                    perm=[(i, i + 1) for i in range(n_data - 1)],
-                )
-            else:
-                prev_last = jnp.zeros_like(qs[-1:])
-            q_prev = jnp.concatenate([prev_last, qs[:-1]], axis=0)
-            cand_p[name] = (qs - q_prev).astype(jnp.int16)
-        return cand_i, cand_p
-
-    spec = P(DATA_AXIS)
-    fn = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=({p: spec for p in PLANES}, {p: spec for p in PLANES}),
-    )
-    return fn(y, cb, cr)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "blocks_h", "blocks_w", "interpret",
-                     "rows_per_step"),
-)
-def encode_window_fused_sharded(
-    samples: jnp.ndarray,
-    *,
-    mesh: Mesh,
-    blocks_h: int,
-    blocks_w: int,
-    interpret: bool | None = None,
-    rows_per_step: int = 1,
-) -> jnp.ndarray:
-    """Mesh-sharded fused encode transform: ZERO collectives.
+def quantize_window_sharded(samples: jnp.ndarray, *, mesh: Mesh) -> jnp.ndarray:
+    """Mesh-sharded quantize_window: frames over "data", zero collectives.
 
     samples: (3, F, B, 64) uint8 blocked planes, F divisible by the
     data-axis size.  Returns (3, F, B, 64) int16 ABSOLUTE quantized
-    amplitudes.  Because the fused kernel (ops/encode_fused.py) emits
-    absolute values — the host packer applies the I-DC chain and P deltas
-    inline — even the encode_transform_sharded P-halo ppermute disappears:
-    every frame is independent, so frames shard over "data" with no
-    cross-device traffic at all.  The cheapest possible use of ICI is not
-    using it.
+    amplitudes.
     """
     spec = P(None, DATA_AXIS)
-
-    def body(s):
-        return encode_window_fused(
-            s, blocks_h=blocks_h, blocks_w=blocks_w,
-            interpret=interpret, rows_per_step=rows_per_step,
-        )
-
     fn = jax.shard_map(
-        body, mesh=mesh, in_specs=(spec,), out_specs=spec,
-        # pallas_call outputs carry no varying-mesh-axes metadata yet
-        # (same workaround as parallel/decode.py's fused path).
-        check_vma=False,
+        quantize_window, mesh=mesh, in_specs=(spec,), out_specs=spec,
     )
     return fn(samples)
-
-
-def shard_samples(mesh: Mesh, y, cb, cr):
-    """Place (F, B, 8, 8) sample arrays with frames over "data"."""
-    sh = NamedSharding(mesh, P(DATA_AXIS))
-    return (
-        jax.device_put(y, sh),
-        jax.device_put(cb, sh),
-        jax.device_put(cr, sh),
-    )

@@ -2,7 +2,7 @@
 
 The reference's distribution unit is the core boundary: core1 owns the SD
 stream and Y-plane entropy work, core0 owns the rest, coordinated by mailbox
-handshakes over shared DDR (reference: SURVEY.md §5.8).  The TPU-native
+handshakes over shared DDR (reference: SURVEY.md §5.8).  The device-native
 equivalent (the build contract from SURVEY.md §5.8):
 
   * control plane   — jax.distributed over DCN (initialize() below);

@@ -4,7 +4,7 @@ The P-frame recurrence S_t = S_{t-1} + D_t (int16, segments reset at
 I-frames; reference: lossless_decode.c:76-128) is a segmented prefix sum.
 When the frame axis is sharded over the "data" mesh axis *without* GOP
 alignment, each device computes its local segmented scan and the cross-shard
-carry is resolved with one all-gather of per-shard summaries over ICI —
+carry is resolved with one all-gather of per-shard summaries —
 the build's sequence-parallelism analog (SURVEY.md §5.7: the recurrence is
 linear, so the carry is an exact int16 segment-combine, no drift).
 
@@ -20,26 +20,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..ops.transform_jax import segmented_scan_flags as _local_scan
 from .mesh import DATA_AXIS
-
-
-def _local_scan(deltas: jnp.ndarray, seg: jnp.ndarray):
-    """Segmented int16 prefix sum, also returning the seen-I flags.
-
-    deltas: (F, ...) int16; seg: (F,) bool.  Returns (vals, seen) where
-    seen[f] = any(seg[:f+1]) — whether frame f's state is already absolute.
-    """
-    f = deltas.shape[0]
-    segb = jnp.broadcast_to(
-        seg.reshape((f,) + (1,) * (deltas.ndim - 1)), deltas.shape
-    )
-
-    def combine(a, b):
-        av, aseg = a
-        bv, bseg = b
-        return jnp.where(bseg, bv, (av + bv).astype(jnp.int16)), aseg | bseg
-
-    return jax.lax.associative_scan(combine, (deltas, segb), axis=0)
 
 
 def _sharded_scan_body(deltas: jnp.ndarray, seg: jnp.ndarray, n_shards: int):
@@ -47,7 +29,7 @@ def _sharded_scan_body(deltas: jnp.ndarray, seg: jnp.ndarray, n_shards: int):
     vals, seen = _local_scan(deltas, seg)
     last_val = vals[-1]
     last_seen = seen[-1]
-    # One ICI all-gather of per-shard summaries (the mailbox/pointer-passing
+    # One all-gather of per-shard summaries (the mailbox/pointer-passing
     # analog of §5.8, made functional).
     all_vals = jax.lax.all_gather(last_val, DATA_AXIS)    # (D, ...)
     all_seen = jax.lax.all_gather(last_seen, DATA_AXIS)   # (D, ...)

@@ -43,12 +43,7 @@ import numpy as np
 from ..core import format as fmt
 from ..utils.config import DecodeConfig
 from ..utils.profile import Profiler
-from .pipeline import (
-    DecodedWindow,
-    DecodePipeline,
-    _StageError,
-    auto_rows_per_step,
-)
+from .pipeline import DecodedWindow, DecodePipeline, _StageError
 
 ByteSource = Union[BinaryIO, Iterable[bytes]]
 
@@ -425,8 +420,6 @@ def decode_live(
         check_factor(scale)
     cfg = pipe.config
     w = cfg.frames_per_batch
-    want_packed = pipe._use_pallas() and cfg.pack_i8
-    want_cm = pipe._want_cm()
 
     parse_q: queue.Queue = queue.Queue(maxsize=max(cfg.prefetch_batches, 1))
     # reader -> deliverer hand-off; its bound is the parse look-ahead.
@@ -459,10 +452,7 @@ def decode_live(
                     src, w, resync=resync, recovery=recovery):
                 if stop_flag.is_set():
                     return
-                fut = ex.submit(
-                    pipe.parse_window, wbuf, index, 0, c,
-                    want_packed, want_cm,
-                )
+                fut = ex.submit(pipe.parse_window, wbuf, index, 0, c)
                 if not _put_or_drop(futs_q, (s, c, index, fut)):
                     fut.cancel()
                     return
@@ -509,8 +499,7 @@ def decode_live(
 
     step = None
     carry = None
-    carry_layout = "cm" if want_cm else "bm"
-    bh = bw = nb = kk = 0
+    bh = bw = nb = 0
     pending: list[tuple[int, int, object]] = []
     try:
         while True:
@@ -537,25 +526,12 @@ def decode_live(
                 hdr = index.header
                 bh, bw = hdr.blocks_h, hdr.blocks_w
                 nb = hdr.blocks_per_plane
-                kk = auto_rows_per_step(bh, bw, w)
                 step = pipe._get_step(bh, bw)
                 downscale = (
                     pipe._get_downscale(bh, bw, scale) if scale != 1
                     else None
                 )
-                if want_cm:
-                    carry = pipe._put(np.zeros(
-                        (3, bh // kk, 64, kk * bw), np.int16
-                    ))
-                else:
-                    carry = pipe._put(np.zeros((3, nb, 64), np.int16))
-            fmt_tag = (
-                "cm" if isinstance(amps, tuple) and amps[0] == "cm"
-                else "bm"
-            )
-            if fmt_tag != carry_layout:
-                carry = pipe._carry_cast(carry, fmt_tag, bh, bw, kk)
-                carry_layout = fmt_tag
+                carry = pipe._put(np.zeros((3, nb, 64), np.int16))
             dev_amps = pipe._put_window(amps, c, w, nb)
             seg = np.zeros(w, dtype=bool)
             seg[:c] = index.is_iframe[:c]
@@ -566,12 +542,12 @@ def decode_live(
             pending.append((s, c, frames))
             ring = max(1, cfg.num_output_buffers)
             while len(pending) > ring:
-                yield pipe._drain(pending.pop(0), bh, bw, device_resident)
+                yield pipe._drain(pending.pop(0), device_resident)
                 if stop is not None and stop():
                     stop_flag.set()
                     return
         while pending:
-            yield pipe._drain(pending.pop(0), bh, bw, device_resident)
+            yield pipe._drain(pending.pop(0), device_resident)
             if stop is not None and stop():
                 return
     finally:
@@ -599,9 +575,9 @@ def decode_live_array(src: ByteSource, **kw) -> np.ndarray:
     """decode_live fully materialized into one (F, H, W) uint32 array."""
     if kw.get("device_resident"):
         raise ValueError(
-            "decode_live_array assembles HOST raster frames; consume "
+            "decode_live_array assembles HOST frames; consume "
             "device-resident windows from decode_live(device_resident="
-            "True) directly (blocked layout, rows beyond .count are pad)"
+            "True) directly (rows beyond .count are pad)"
         )
     wins = list(decode_live(src, **kw))
     if not wins:

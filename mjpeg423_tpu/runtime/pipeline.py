@@ -1,6 +1,6 @@
 """Streaming decode pipeline: parse stage ∥ device transform ∥ output.
 
-The TPU-native re-architecture of the reference's 3-stage dual-core + HW
+The device re-architecture of the reference's 3-stage dual-core + HW
 pipeline (reference: playback.c:80-134 `process`, core1/software/main.c:227-335
 message loop):
 
@@ -8,7 +8,7 @@ message loop):
       (frames x planes) byte ranges indexed straight into the container
       buffer (zero copy; the core1 + Cb/Cr-on-core0 analog).
   Stage B (device)        — one jit-compiled windowed decode step: dequant +
-      segmented temporal scan + fused IDCT/color (Pallas) + raster.  Windows
+      segmented temporal scan + IDCT/color + raster (transform_jax).  Windows
       of W frames carry the int16 coefficient state of their last frame
       forward, so window boundaries need no GOP alignment — the carry is the
       device-resident analog of the reference's persistent DCAC buffers
@@ -38,33 +38,6 @@ from ..utils.config import DecodeConfig
 from ..utils.profile import Profiler, default_profiler
 
 PLANE_COUNT = 3
-
-
-def auto_rows_per_step(
-    blocks_h: int, blocks_w: int, window: int = 24, layout: str = "cm"
-) -> int:
-    """Pick the fused kernel's block-row fold (lane-tile width = k*bw).
-
-    Measured on v5e (chained 1080p/VGA runs): the smallest fold reaching
-    >= 320 lanes wins — VGA bw=80 -> k=4 (48.7k f/s at W=16; k=5/k=6 both
-    slower), 1080p bw=240 -> k=2 (10,366 f/s at W=20, 9,926 at W=16, vs
-    8,963 for k=1) — but the fold multiplies the kernel's VMEM footprint
-    (~1280*W*lanes bytes across double-buffered in/out), so the lane cap
-    shrinks with the window size: 1080p W=20 k=2 (W*lanes = 9600)
-    compiles, W=24 k=2 (11520) does not — the budget constant encodes
-    that measured boundary.  The BLOCK-MAJOR kernel's in-VMEM transposes
-    need extra scoped scratch, so its boundary is tighter: 1080p W=14 k=2
-    (6720) compiles at 9,663 f/s (+6.8% over W=20 k=1), W=15 (7200) OOMs
-    — layout="bm" uses that smaller budget.  Falls back to the largest
-    fold under the cap when no fold reaches 320 lanes (narrow
-    geometries); the cap is never floored above the budget (a floor once
-    selected folds past the compile boundary for windows > ~38)."""
-    from ..ops.transform_fused import pick_fold
-
-    total = 10_000_000 if layout == "cm" else 7_000_000
-    budget = int(total // (1024 * max(window, 1)))
-    lmax = min(512, budget)
-    return pick_fold(blocks_h, blocks_w, target=320, lane_cap=lmax)
 
 
 class _StageError:
@@ -111,92 +84,6 @@ class RecoveryLog:
         return sum(hi - lo for lo, hi in self.skipped)
 
 
-def _device_step_factory(blocks_h: int, blocks_w: int, use_pallas: bool,
-                         tile: int, interpret: bool | None,
-                         raster_on_device: bool = False,
-                         window: int = 24):
-    """Build the jit'd windowed decode step with coefficient-state carry.
-
-    use_pallas=True -> the fully-fused kernel (ops/transform_fused.py):
-    dequant + temporal recurrence + IDCT + color in one HBM pass.  Frames
-    come back in the kernel's blocked layout unless raster_on_device (the
-    device-side XLA raster transpose measures ~45x the kernel itself; the
-    host converts after transfer — blocked_to_raster_host).
-    Fallback: XLA segmented scan + jnp transform (always raster).
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ..ops import transform_fused, transform_jax
-
-    if use_pallas:
-        rows_k = auto_rows_per_step(blocks_h, blocks_w, window)
-        rows_k_bm = auto_rows_per_step(blocks_h, blocks_w, window,
-                                       layout="bm")
-
-        def fused_step(amps, seg, carry):
-            """Dispatch on the parse output format:
-            ("cm", a)   — coefficient-major (3, W, bh/k, 64, k*bw) int16
-            ("i8", dc, ac8) — compressed int16 DC + int8 AC
-            plain array — block-major (3, W, B, 64) int16
-            """
-            if isinstance(amps, tuple) and amps[0] == "cm":
-                return transform_fused.decode_window_fused_cm(
-                    amps[1], seg, carry, blocks_h=blocks_h,
-                    blocks_w=blocks_w, interpret=interpret,
-                    rows_per_step=rows_k, raster=raster_on_device,
-                )
-            if isinstance(amps, tuple):
-                _, dc, ac8 = amps
-                return transform_fused.decode_window_fused_i8(
-                    dc, ac8, seg, carry, blocks_h=blocks_h,
-                    blocks_w=blocks_w, interpret=interpret,
-                    raster=raster_on_device,
-                )
-            return transform_fused.decode_window_fused(
-                amps, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
-                interpret=interpret, raster=raster_on_device,
-                rows_per_step=rows_k_bm,
-            )
-        return fused_step
-
-    yq, cq = transform_jax.quant_tensors()
-
-    @jax.jit
-    def step(amps, seg, carry):
-        # amps: (3, W, B, 64) int16; seg: (W,) bool; carry: (3, B, 64) int16.
-        states = []
-        new_carry = []
-        for p, q in ((0, yq), (1, cq), (2, cq)):
-            deltas = transform_jax.dequantize(amps[p], q)
-            vals, seen = _scan_with_flags(deltas, seg)
-            # Frames before the window's first I-frame continue from carry.
-            vals = jnp.where(
-                seen, vals, (carry[p][None] + vals).astype(jnp.int16)
-            )
-            states.append(vals)
-            new_carry.append(vals[-1])
-        frames = transform_jax.decode_transform_states(
-            *states, blocks_h=blocks_h, blocks_w=blocks_w
-        )
-        return frames, jnp.stack(new_carry)
-
-    def _scan_with_flags(deltas, seg):
-        f = deltas.shape[0]
-        segb = jnp.broadcast_to(
-            seg.reshape((f,) + (1,) * (deltas.ndim - 1)), deltas.shape
-        )
-
-        def combine(a, b):
-            av, aseg = a
-            bv, bseg = b
-            return jnp.where(bseg, bv, (av + bv).astype(jnp.int16)), aseg | bseg
-
-        return jax.lax.associative_scan(combine, (deltas, segb), axis=0)
-
-    return step
-
-
 class DecodePipeline:
     """End-to-end streaming decoder for one MJPEG423 container.
 
@@ -204,7 +91,7 @@ class DecodePipeline:
     jax.sharding.Mesh shards the stream's GOPs across the mesh's "data"
     axis: each device streams its own GOP-aligned frame partition through
     the SAME jit step (shard_map over per-device windows with per-device
-    coefficient carry), so the flagship fused kernel runs on every chip
+    coefficient carry), so the decode step runs on every device
     with zero collectives — the reference's whole architecture (core1
     streaming + core0 consuming, core1/main.c:227-335) at pod scale.
     Windows parse per partition on demand; nothing whole-stream is ever
@@ -246,22 +133,15 @@ class DecodePipeline:
 
     def parse_window(
         self, data: bytes, index: fmt.FrameIndex, start: int, count: int,
-        want_packed: bool = False,
-        want_cm: bool = False,
         frames: np.ndarray | None = None,
-    ):
+    ) -> np.ndarray:
         """Entropy-decode frames [start, start+count).
 
         frames: an explicit array of frame indices overrides start/count —
         the windows need not be contiguous (decode_iframes batches GOP
         heads this way).
 
-        Returns (3, count, B, 64) int16 amplitudes, or — when want_packed
-        and every AC amplitude fits int8 — the compressed
-        (dc (3, count, B) int16, ac (3, count, B, 64) int8) pair consumed by
-        the i8 fused kernel (half the host->device bytes and HBM input
-        traffic; the native decoder emits it directly at no extra parse
-        cost and signals fallback when a stream needs the full range).
+        Returns (3, count, B, 64) int16 amplitudes.
         """
         if frames is None:
             fsel = np.arange(start, start + count)
@@ -293,33 +173,6 @@ class DecodePipeline:
                 is_p = np.broadcast_to(
                     index.frame_type[fsel] != 0, (3, count)
                 ).reshape(-1)
-                if want_cm:
-                    bh = index.header.blocks_h
-                    bw = index.header.blocks_w
-                    k = auto_rows_per_step(
-                        bh, bw, self.config.frames_per_batch
-                    )
-                    cm = centropy.decode_batch_cm(
-                        data, offs, lens, is_p, nb, k * bw
-                    )
-                    if cm is not None:
-                        self.profiler.probe("parse/cm_windows").add(1)
-                        return (
-                            "cm",
-                            cm.reshape(3, count, bh // k, 64, k * bw),
-                        )
-                if want_packed:
-                    packed = centropy.decode_batch_i8(
-                        data, offs, lens, is_p, nb
-                    )
-                    if packed is not None:
-                        dc, ac = packed
-                        self.profiler.probe("parse/i8_windows").add(1)
-                        return (
-                            "i8",
-                            dc.reshape(3, count, nb),
-                            ac.reshape(3, count, nb, 64),
-                        )
                 out = centropy.decode_batch(data, offs, lens, is_p, nb)
                 return out.reshape(3, count, nb, 64)
             out = np.empty((3, count, nb, 64), dtype=np.int16)
@@ -336,88 +189,46 @@ class DecodePipeline:
 
     # ----- Stage B: device step ----------------------------------------
 
-    def _carry_cast(self, carry, to_tag: str, blocks_h: int, blocks_w: int,
-                    kk: int):
-        """Convert a device-resident coefficient carry between the two
-        parse layouts.  block-major (3, B, 64) <-> coefficient-major
-        (3, bh/k, 64, k*bw): fold k block-rows, transpose in-tile.  Needed
-        when parse_window falls back to a different layout mid-stream
-        (e.g. decode_batch_cm signalling unsupported geometry) so resumed
-        state stays exact."""
-        import jax.numpy as jnp
-
-        if to_tag == "cm":
-            return jnp.swapaxes(
-                carry.reshape(3, blocks_h // kk, kk * blocks_w, 64), -1, -2
-            )
-        return jnp.swapaxes(carry, -1, -2).reshape(
-            3, blocks_h * blocks_w, 64
-        )
-
-    def _use_pallas(self) -> bool:
-        """Resolve the use_pallas=None auto default: fused kernel on TPU,
-        XLA elsewhere.  Forcing True off-TPU runs the Pallas interpreter —
-        orders of magnitude slower than XLA-on-CPU; tests only."""
-        if self.config.use_pallas is None:
-            import jax
-
-            return jax.default_backend() == "tpu"
-        return self.config.use_pallas
-
     def _get_step(self, blocks_h: int, blocks_w: int):
-        use_pallas = self._use_pallas()
-        key = (blocks_h, blocks_w, use_pallas)
+        """The jit'd window step (transform_jax.decode_window) for one
+        geometry: (amps, seg, carry) -> (frames, new_carry)."""
+        key = (blocks_h, blocks_w)
         if key not in self._step_cache:
-            import jax
+            import functools
 
-            on_tpu = jax.default_backend() == "tpu"
-            self._step_cache[key] = _device_step_factory(
-                blocks_h, blocks_w, use_pallas,
-                self.config.pallas_tile, None if on_tpu else True,
-                self.config.raster_on_device,
-                self.config.frames_per_batch,
+            from ..ops import transform_jax
+
+            self._step_cache[key] = functools.partial(
+                transform_jax.decode_window,
+                blocks_h=blocks_h, blocks_w=blocks_w,
             )
         return self._step_cache[key]
-
-    def _to_raster(self, host: np.ndarray, blocks_h: int,
-                   blocks_w: int) -> np.ndarray:
-        """Drain-side raster conversion when frames arrive blocked."""
-        if host.ndim == 3:  # already raster (XLA path or raster_on_device)
-            return host
-        from ..ops.transform_fused import blocked_to_raster_host
-
-        return blocked_to_raster_host(host, blocks_h, blocks_w)
 
     def _get_downscale(self, blocks_h: int, blocks_w: int, f: int):
         """jit'd device-side box downscale (ops/scale.py): applied to the
         step output BEFORE transfer, so preview/thumbnail egress drops
-        f^2 x.  Emits raster (the device transpose runs on f^2 fewer
-        pixels, sidestepping the full-res rasterization cost)."""
+        f^2 x."""
         from ..ops import scale as _scale
 
         _scale.check_factor(f)  # fail at the API boundary, not inside jit
         key = ("ds", blocks_h, blocks_w, f)
         if key not in self._step_cache:
+            import functools
+
             import jax
 
-            def fn(frames):
-                if frames.ndim == 5:  # fused blocked layout
-                    return _scale.downscale_blocked(
-                        frames, blocks_h, blocks_w, f
-                    )
-                return _scale.downscale_raster(frames, f)
-
-            self._step_cache[key] = jax.jit(fn)
+            self._step_cache[key] = jax.jit(
+                functools.partial(_scale.downscale_raster, f=f)
+            )
         return self._step_cache[key]
 
     # ----- Full pipeline ------------------------------------------------
 
     def warmup(self, width: int, height: int) -> None:
         """Pre-compile the device step for a geometry before streams arrive
-        (serving cold-start: first-compile on a TPU takes tens of seconds
-        to minutes; the reference's equivalent is all-at-load init,
-        main.c:141-171).  Runs one zero-delta window through the step in
-        the stream format decode() will use, then discards it.
+        (serving cold-start: the first compile of a geometry takes seconds;
+        the reference's equivalent is all-at-load init, main.c:141-171).
+        Runs one zero-delta window through the step, then discards it.
         """
         import jax
         import numpy as np
@@ -427,60 +238,24 @@ class DecodePipeline:
         w = self.config.frames_per_batch
         seg = np.zeros(w, dtype=bool)
         seg[0] = True
+        amps = np.zeros((3, w, nb, 64), np.int16)
+        carry = np.zeros((3, nb, 64), np.int16)
         if self.mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec as P
 
             from ..parallel.mesh import DATA_AXIS
 
             n_dev = self.mesh.shape[DATA_AXIS]
-            fmt_tag = self._mesh_fmt()
-            kk = (auto_rows_per_step(bh, bw, w)
-                  if fmt_tag == "cm" else 1)
-            if fmt_tag == "cm":
-                amps = np.zeros(
-                    (n_dev, 3, w, bh // kk, 64, kk * bw), np.int16
-                )
-                carry = np.zeros((n_dev, 3, bh // kk, 64, kk * bw), np.int16)
-            else:
-                amps = np.zeros((n_dev, 3, w, nb, 64), np.int16)
-                carry = np.zeros((n_dev, 3, nb, 64), np.int16)
             sh = NamedSharding(self.mesh, P(DATA_AXIS))
-            step = self._get_mesh_step(bh, bw, fmt_tag)
-            segs = np.broadcast_to(seg, (n_dev, w)).copy()
-            frames, _ = step(
-                jax.device_put(amps, sh), jax.device_put(segs, sh),
-                jax.device_put(carry, sh),
-            )
-            frames.block_until_ready()
-            return
-        step = self._get_step(bh, bw)
-        use_pallas = self._use_pallas()
-        if use_pallas and self.config.pack_i8:
-            # decode() feeds ("i8", dc, ac8) windows in this config: warm
-            # the i8 kernel trace.
-            dc = self._put(np.zeros((3, w, nb), np.int16))
-            ac = self._put(np.zeros((3, w, nb, 64), np.int8))
-            carry = self._put(np.zeros((3, nb, 64), np.int16))
-            frames, _ = step(("i8", dc, ac), self._put(seg), carry)
-            frames.block_until_ready()
-        elif self._want_cm():
-            kk = auto_rows_per_step(bh, bw, w)
-            amps = ("cm", self._put(
-                np.zeros((3, w, bh // kk, 64, kk * bw), np.int16)
+            step = self._get_mesh_step(bh, bw)
+            frames, _ = step(*(
+                jax.device_put(np.broadcast_to(x, (n_dev,) + x.shape), sh)
+                for x in (amps, seg, carry)
             ))
-            carry = self._put(np.zeros((3, bh // kk, 64, kk * bw), np.int16))
-            frames, _ = step(amps, self._put(seg), carry)
-            frames.block_until_ready()
-        # ALWAYS warm the block-major trace too: it is both the default
-        # window format and the runtime fallback the i8 config takes when
-        # a window's amplitudes exceed int8 (parse_window's decode_batch_i8
-        # -> None) and the cm config takes when the native cm batch is
-        # unavailable.  Warming only the fast path would stall the first
-        # fallback window on a fresh multi-second compile — exactly the
-        # cold start warmup() exists to prevent.
-        amps = self._put(np.zeros((3, w, nb, 64), np.int16))
-        carry = self._put(np.zeros((3, nb, 64), np.int16))
-        frames, _ = step(amps, self._put(seg), carry)
+        else:
+            step = self._get_step(bh, bw)
+            frames, _ = step(self._put(amps), self._put(seg),
+                             self._put(carry))
         frames.block_until_ready()
 
     def decode(
@@ -522,10 +297,10 @@ class DecodePipeline:
         [frame_lo, frame_hi) range with no wasted tail work.
 
         device_resident=True yields windows whose .frames is the DEVICE
-        array (blocked kernel layout unless config.raster_on_device; rows
-        beyond .count are pad) — zero device->host transfer, for consumers
-        that feed the frames straight into another on-device computation
-        (examples/device_consumer.py).  Single-device mode only.
+        array ((W, H, Wd) uint32; rows beyond .count are pad) — zero
+        device->host transfer, for consumers that feed the frames straight
+        into another on-device computation (examples/device_consumer.py).
+        Single-device mode only.
 
         Note: with mesh=..., windows are yielded in per-step order across
         device partitions, NOT in global frame order; consumers key on
@@ -569,13 +344,6 @@ class DecodePipeline:
         parse_q: queue.Queue = queue.Queue(maxsize=max(cfg.prefetch_batches, 1))
         stop_flag = threading.Event()
 
-        use_pallas = self._use_pallas()
-        want_packed = use_pallas and cfg.pack_i8
-        # _want_cm mirrors parse_window's actual fast-path conditions
-        # (spec_segments and the pure-Python fallback both emit block-major)
-        # so the carry layout below starts out right.
-        want_cm = self._want_cm()
-
         def _put_or_drop(item) -> bool:
             """Put unless the consumer abandoned the generator (stop set).
             A plain blocking put can deadlock the producer: a data or
@@ -610,7 +378,6 @@ class DecodePipeline:
                             return
                         futs.append((s, c, ex.submit(
                             self.parse_window, data, index, s, c,
-                            want_packed, want_cm,
                         )))
 
                     # Latency mode: the first window's parse runs with
@@ -642,15 +409,7 @@ class DecodePipeline:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
 
-        kk = auto_rows_per_step(hdr.blocks_h, hdr.blocks_w, w)
-
-        if want_cm:
-            carry = self._put(np.zeros(
-                (3, hdr.blocks_h // kk, 64, kk * hdr.blocks_w), np.int16
-            ))
-        else:
-            carry = self._put(np.zeros((3, nb, 64), dtype=np.int16))
-        carry_layout = "cm" if want_cm else "bm"
+        carry = self._put(np.zeros((3, nb, 64), dtype=np.int16))
         pending: list[tuple[int, int, object]] = []
         try:
             while True:
@@ -660,17 +419,6 @@ class DecodePipeline:
                 if isinstance(item, _StageError):
                     raise item.exc
                 s, c, amps = item
-                # parse_window may fall back to a different layout than
-                # planned (e.g. decode_batch_cm signalling unsupported
-                # geometry): convert the carry so resumed state stays exact.
-                fmt_tag = (
-                    "cm"
-                    if isinstance(amps, tuple) and amps[0] == "cm"
-                    else "bm"
-                )
-                if fmt_tag != carry_layout:
-                    carry = self._carry_cast(carry, fmt_tag, bh, bw, kk)
-                    carry_layout = fmt_tag
                 dev_amps = self._put_window(amps, c, w, nb)
                 seg = np.zeros(w, dtype=bool)
                 seg[: min(c, w)] = index.is_iframe[s:s + c]
@@ -683,11 +431,8 @@ class DecodePipeline:
                 pending.append((s, c, frames))
                 if latency_first and s == start_frame:
                     # Deliver the first window NOW — before any later
-                    # window's H2D is posted (on half-duplex links a
-                    # queued post delays this egress ~2.5x; on duplex
-                    # PCIe the two paths merely share nothing).
-                    yield self._drain(pending.pop(0), bh, bw,
-                                      device_resident)
+                    # window's H2D is posted behind it.
+                    yield self._drain(pending.pop(0), device_resident)
                     if stop is not None and stop():
                         stop_flag.set()
                         return
@@ -696,13 +441,12 @@ class DecodePipeline:
                 # ring, ece423_vid_ctl.c:96-116); drain the oldest beyond it.
                 ring = max(1, cfg.num_output_buffers)
                 while len(pending) > ring:
-                    yield self._drain(pending.pop(0), bh, bw,
-                                      device_resident)
+                    yield self._drain(pending.pop(0), device_resident)
                     if stop is not None and stop():
                         stop_flag.set()
                         return
             while pending:
-                yield self._drain(pending.pop(0), bh, bw, device_resident)
+                yield self._drain(pending.pop(0), device_resident)
                 if stop is not None and stop():
                     return
         finally:
@@ -723,42 +467,8 @@ class DecodePipeline:
 
     # ----- Mesh-sharded streaming (multi-chip pipeline) ------------------
 
-    def _want_cm(self, ignore_i8: bool = False) -> bool:
-        """THE coefficient-major fast-path predicate — the single source of
-        truth for whether parse_window emits (and the device step consumes)
-        the cm layout.  Duplicated copies of this condition drifting apart
-        was a round-1 carry-layout bug (ADVICE.md item 4); warmup(),
-        decode(), and _mesh_fmt() all call this one definition.
-        ignore_i8: the mesh path never packs int8 (the sharded step
-        standardizes on one array format), so it skips that exclusion.
-        coef_major=None (auto) resolves to BLOCK-major: a pipeline is one
-        host feeding one chip, which is parse-bound ~20x, and block-major
-        parses ~1.7x faster than cm while the cm kernel is only ~1.1x
-        faster — min(parse, kernel) favors bm (DESIGN.md §2).  cm is the
-        explicit opt-in for chip-bound serving."""
-        cfg = self.config
-        return (
-            self._use_pallas() and cfg.coef_major is True
-            and (ignore_i8 or not cfg.pack_i8)
-            and cfg.spec_segments <= 1
-            and cfg.use_native_entropy and centropy.native_available()
-        )
-
-    def parse_layout(self) -> str:
-        """Resolved host-parse emission layout for this config: "cm" or
-        "bm" (int8 packing, when enabled AND the amplitudes fit, is a
-        runtime refinement of "bm").  Public so harnesses (bench.py's
-        keystone stage) can report the layout the pipeline actually runs."""
-        return "cm" if self._want_cm() else "bm"
-
-    def _mesh_fmt(self) -> str:
-        """Device input layout for the mesh path: coefficient-major when the
-        native parser can emit it for the fused kernel, else block-major."""
-        return "cm" if self._want_cm(ignore_i8=True) else "bm"
-
-    def _get_mesh_step(self, blocks_h: int, blocks_w: int, fmt: str):
-        use_pallas = self._use_pallas()
-        key = ("mesh", blocks_h, blocks_w, fmt, use_pallas)
+    def _get_mesh_step(self, blocks_h: int, blocks_w: int):
+        key = ("mesh", blocks_h, blocks_w)
         if key in self._step_cache:
             return self._step_cache[key]
         import jax
@@ -766,31 +476,18 @@ class DecodePipeline:
 
         from ..parallel.mesh import DATA_AXIS
 
-        on_tpu = jax.default_backend() == "tpu"
-        base = _device_step_factory(
-            blocks_h, blocks_w, use_pallas,
-            self.config.pallas_tile, None if on_tpu else True,
-            self.config.raster_on_device,
-            self.config.frames_per_batch,
-        )
+        base = self._get_step(blocks_h, blocks_w)
 
         def body(amps, seg, carry):
             # Leading device axis is 1 inside the shard.
-            arg = ("cm", amps[0]) if fmt == "cm" else amps[0]
-            frames, new_carry = base(arg, seg[0], carry[0])
+            frames, new_carry = base(amps[0], seg[0], carry[0])
             return frames[None], new_carry[None]
 
         spec = P(DATA_AXIS)
-        sm = jax.shard_map(
-            body,
-            mesh=self.mesh,
-            in_specs=(spec, spec, spec),
-            out_specs=(spec, spec),
-            # pallas_call out_shapes carry no varying-mesh-axis info
-            # (see parallel/decode.py).
-            check_vma=False,
-        )
-        step = jax.jit(sm)
+        step = jax.jit(jax.shard_map(
+            body, mesh=self.mesh,
+            in_specs=(spec, spec, spec), out_specs=(spec, spec),
+        ))
         self._step_cache[key] = step
         return step
 
@@ -846,37 +543,11 @@ class DecodePipeline:
             (p.num_frames + w - 1) // w for p in parts
         ) if any(p.num_frames for p in parts) else 0
 
-        fmt_tag = self._mesh_fmt()
-        kk = auto_rows_per_step(bh, bw, w) if fmt_tag == "cm" else 1
-        groups, bw_eff = bh // kk, kk * bw
-        step = self._get_mesh_step(bh, bw, fmt_tag)
-
-        def to_fmt(amps, c):
-            """Normalize one parse result to the stream format, padded to w
-            frames (zero deltas repeat the last frame; dropped on yield)."""
-            if fmt_tag == "cm":
-                if isinstance(amps, tuple) and amps[0] == "cm":
-                    a = amps[1]
-                else:
-                    # Native cm fallback: host-side relayout through the
-                    # kernel's OWN layout helper, so this path can never
-                    # drift from what decode_window_fused_cm consumes.
-                    from ..ops.transform_fused import to_cm
-
-                    a = to_cm(amps, bh, bw, kk)
-                out = np.zeros((3, w, groups, 64, bw_eff), np.int16)
-            else:
-                a = amps
-                out = np.zeros((3, w, nb, 64), np.int16)
-            out[:, :c] = a
-            return out
+        step = self._get_mesh_step(bh, bw)
 
         def parse_super(t: int):
             """Parse step t's window of every partition -> stacked arrays."""
-            if fmt_tag == "cm":
-                amps = np.zeros((n_dev, 3, w, groups, 64, bw_eff), np.int16)
-            else:
-                amps = np.zeros((n_dev, 3, w, nb, 64), np.int16)
+            amps = np.zeros((n_dev, 3, w, nb, 64), np.int16)
             seg = np.zeros((n_dev, w), dtype=bool)
             spans = []
             for p in parts:
@@ -885,10 +556,9 @@ class DecodePipeline:
                 spans.append((lo, cnt))
                 if cnt == 0:
                     continue
-                raw = self.parse_window(
-                    data, index, lo, cnt, False, fmt_tag == "cm"
-                )
-                amps[p.host] = to_fmt(raw, cnt)
+                # Rows past cnt stay zero deltas: they repeat the last
+                # frame and are dropped on yield.
+                amps[p.host, :, :cnt] = self.parse_window(data, index, lo, cnt)
                 seg[p.host, :cnt] = index.is_iframe[lo:lo + cnt]
             return amps, seg, spans
 
@@ -944,11 +614,9 @@ class DecodePipeline:
         th.start()
 
         dev_sharding = NamedSharding(mesh, P(DATA_AXIS))
-        if fmt_tag == "cm":
-            carry = jnp.zeros((n_dev, 3, groups, 64, bw_eff), jnp.int16)
-        else:
-            carry = jnp.zeros((n_dev, 3, nb, 64), jnp.int16)
-        carry = jax.device_put(carry, dev_sharding)
+        carry = jax.device_put(
+            jnp.zeros((n_dev, 3, nb, 64), jnp.int16), dev_sharding
+        )
 
         pending: list[tuple[list, object]] = []
 
@@ -956,11 +624,6 @@ class DecodePipeline:
             spans, frames = item
             with self.profiler.time("output/transfer"):
                 host = np.asarray(frames)  # gathers all shards
-            if host.ndim == 6:  # (D, W, 8, g, 8, bw_eff) blocked layout
-                host = np.stack(
-                    [self._to_raster(host[d], bh, bw)
-                     for d in range(host.shape[0])]
-                )
             return [
                 DecodedWindow(lo, cnt, host[d, :cnt])
                 for d, (lo, cnt) in enumerate(spans)
@@ -1004,26 +667,10 @@ class DecodePipeline:
                 if not th.is_alive():
                     break
 
-    def _put_window(self, amps, c: int, w: int, nb: int):
+    def _put_window(self, amps: np.ndarray, c: int, w: int, nb: int):
         """Pad a parsed window to the jit window length (zero deltas repeat
-        the last frame; padded rows are dropped at drain) and device_put it,
-        preserving the parse layout tag ("cm"/"i8"/block-major)."""
-        if isinstance(amps, tuple) and amps[0] == "cm":
-            cm = amps[1]
-            if c < w:
-                pcm = np.zeros((3, w) + cm.shape[2:], dtype=np.int16)
-                pcm[:, :c] = cm
-                cm = pcm
-            return ("cm", self._put(cm))
-        if isinstance(amps, tuple):  # packed ("i8", dc, ac8)
-            _, dc, ac = amps
-            if c < w:
-                pdc = np.zeros((3, w, nb), dtype=np.int16)
-                pac = np.zeros((3, w, nb, 64), dtype=np.int8)
-                pdc[:, :c] = dc
-                pac[:, :c] = ac
-                dc, ac = pdc, pac
-            return ("i8", self._put(dc), self._put(ac))
+        the last frame; padded rows are dropped at drain) and device_put
+        it."""
         if c < w:
             pad = np.zeros((3, w, nb, 64), dtype=np.int16)
             pad[:, :c] = amps
@@ -1075,9 +722,7 @@ class DecodePipeline:
         the thumbnail-farm mode (every selected frame is an I-frame, so all
         windows are pure resets and the carry never contributes).
 
-        Seam windows parse block-major (mixed fast-path formats cannot
-        concatenate); windows fully inside one stream use the configured
-        fast path.  Yields (stream_idx, frame_idx, (H, W) uint32 frame)
+        Yields (stream_idx, frame_idx, (H, W) uint32 frame)
         in global order.
 
         scale (1, 2, 4, 8): device-side box downscale before transfer —
@@ -1108,10 +753,6 @@ class DecodePipeline:
         w = cfg.frames_per_batch
         step = self._get_step(bh, bw)
         downscale = self._get_downscale(bh, bw, scale) if scale != 1 else None
-        use_pallas = self._use_pallas()
-        want_packed = use_pallas and cfg.pack_i8
-        want_cm = self._want_cm()
-
         # Global frame list in stream order; each window is a slice of it.
         entries = [
             (si, int(fi))
@@ -1122,15 +763,11 @@ class DecodePipeline:
             )
         ]
         carry = self._put(np.zeros((3, nb, 64), np.int16))
-        carry_layout = "bm"
-
-        kk = auto_rows_per_step(bh, bw, w)
 
         def emit(item):
             ents, c, frames = item
             with self.profiler.time("output/transfer"):
                 host = np.asarray(frames)
-            host = self._to_raster(host, bh, bw)
             for i in range(c):
                 si, fi = ents[i]
                 yield si, fi, host[i]
@@ -1145,19 +782,14 @@ class DecodePipeline:
                     runs[-1][1].append(fi)
                 else:
                     runs.append((si, [fi]))
-            if len(runs) > 1:
-                # Mixed formats cannot concatenate: parse block-major.
-                return np.concatenate([
-                    self.parse_window(
-                        datas[si], indices[si], 0, 0,
-                        frames=np.asarray(fis),
-                    )
-                    for si, fis in runs
-                ], axis=1)
-            si, fis = runs[0]
-            return self.parse_window(
-                datas[si], indices[si], 0, 0, want_packed, want_cm,
-                frames=np.asarray(fis),
+            parts = [
+                self.parse_window(
+                    datas[si], indices[si], 0, 0, frames=np.asarray(fis),
+                )
+                for si, fis in runs
+            ]
+            return parts[0] if len(parts) == 1 else np.concatenate(
+                parts, axis=1
             )
 
         windows = [entries[s:s + w] for s in range(0, len(entries), w)]
@@ -1180,13 +812,6 @@ class DecodePipeline:
                     futs.append(ex.submit(parse_ents, windows[nxt]))
                     nxt += 1
                 c = len(ents)
-                fmt_tag = (
-                    "cm" if isinstance(amps, tuple) and amps[0] == "cm"
-                    else "bm"
-                )
-                if fmt_tag != carry_layout:
-                    carry = self._carry_cast(carry, fmt_tag, bh, bw, kk)
-                    carry_layout = fmt_tag
                 dev_amps = self._put_window(amps, c, w, nb)
                 seg = np.zeros(w, dtype=bool)
                 for i, (si, fi) in enumerate(ents):
@@ -1233,19 +858,14 @@ class DecodePipeline:
         idx = np.array([i for i, _ in pairs], dtype=np.int64)
         return idx, np.stack([f for _, f in pairs])
 
-    def _drain(
-        self, item, blocks_h: int, blocks_w: int,
-        device_resident: bool = False,
-    ) -> DecodedWindow:
+    def _drain(self, item, device_resident: bool = False) -> DecodedWindow:
         s, c, frames = item
         if device_resident:
-            # Serving-to-model path: the window stays on device (blocked
-            # kernel layout unless raster_on_device) — no transfer, no
-            # host raster pass.  `frames` rows beyond `c` are pad.
+            # Serving-to-model path: the window stays on device — no
+            # transfer.  `frames` rows beyond `c` are pad.
             return DecodedWindow(s, c, frames)
         with self.profiler.time("output/transfer"):
             host = np.asarray(frames)
-        host = self._to_raster(host, blocks_h, blocks_w)
         return DecodedWindow(s, c, host[:c])
 
     def decode_array(self, data: bytes, **kw) -> np.ndarray:
@@ -1257,9 +877,9 @@ class DecodePipeline:
         """
         if kw.get("device_resident"):
             raise ValueError(
-                "decode_array assembles HOST raster frames; consume "
+                "decode_array assembles HOST frames; consume "
                 "device-resident windows from decode(device_resident=True) "
-                "directly (blocked layout, rows beyond .count are pad)"
+                "directly (rows beyond .count are pad)"
             )
         wins = list(self.decode(data, **kw))
         if not wins:
@@ -1281,7 +901,7 @@ class DecodePipeline:
         """First frame in [lo, hi) whose entropy parse raises, else None."""
         for f in range(lo, hi):
             try:
-                self.parse_window(data, index, f, 1, False, False)
+                self.parse_window(data, index, f, 1)
             except ValueError:
                 return f
         return None

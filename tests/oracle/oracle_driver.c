@@ -4,7 +4,7 @@
  *
  * This file is OUR test infrastructure.  It is compiled against the reference
  * codec sources in-place under /root/reference (read-only, portable C) so the
- * test suite can verify bit-exactness of the TPU framework against the
+ * test suite can verify bit-exactness of the JAX framework against the
  * genuine article.  No reference code is copied into this repository; this
  * driver only *calls* it (lossless_decode, idct, ycbcr_to_rgb, fdct,
  * quantize_I/P, lossless_encode — see tests/oracle/build_oracle.py for the

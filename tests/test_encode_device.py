@@ -1,8 +1,5 @@
-"""Fused Pallas encode transform (ops/encode_fused.py) bit-exactness.
-
-Runs in interpret mode on the CPU test backend (tests/conftest.py forces
-JAX_PLATFORMS=cpu); scripts/tpu_check.py re-validates on hardware.
-"""
+"""The device encode step (encode_jax.quantize_window) and the device
+encoder built on it: bit-exact planes, byte-identical containers."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -10,7 +7,7 @@ import pytest
 from mjpeg423_tpu.codec import encoder as enc
 from mjpeg423_tpu.core import tables as T
 from mjpeg423_tpu.ops import encode_ref
-from mjpeg423_tpu.ops.encode_fused import encode_window_fused
+from mjpeg423_tpu.ops.encode_jax import quantize_window
 
 
 def _ref_quantize(samples, quant64):
@@ -18,13 +15,11 @@ def _ref_quantize(samples, quant64):
     return encode_ref.quantize_blocks(coefs, quant64)
 
 
-@pytest.mark.parametrize("bh,bw,W,k", [(4, 6, 2, 1), (6, 8, 3, 3), (1, 2, 1, 1)])
-def test_kernel_matches_reference_fdct_quant(rng, bh, bw, W, k):
+@pytest.mark.parametrize("bh,bw,W", [(4, 6, 2), (6, 8, 3), (1, 2, 1)])
+def test_quantize_window_matches_reference(rng, bh, bw, W):
     B = bh * bw
     s = rng.integers(0, 256, (3, W, B, 64)).astype(np.uint8)
-    out = np.asarray(encode_window_fused(
-        jnp.asarray(s), blocks_h=bh, blocks_w=bw, rows_per_step=k
-    ))
+    out = np.asarray(quantize_window(jnp.asarray(s)))
     for p in range(3):
         qt = T.YQUANT64 if p == 0 else T.CQUANT64
         for f in range(W):
@@ -32,7 +27,7 @@ def test_kernel_matches_reference_fdct_quant(rng, bh, bw, W, k):
             np.testing.assert_array_equal(out[p, f], expect)
 
 
-def test_kernel_extreme_samples():
+def test_quantize_window_extreme_samples():
     """All-0 / all-255 / checkerboard blocks hit the butterflies' extreme
     intermediate ranges and the quantizer's fixup paths."""
     B = 4
@@ -40,7 +35,7 @@ def test_kernel_extreme_samples():
     s[0, 0, 0] = 255
     s[1, 0, 1] = np.tile([0, 255] * 4, 8)
     s[2, 0, 2] = np.repeat([255, 0] * 4, 8)
-    out = np.asarray(encode_window_fused(jnp.asarray(s), blocks_h=2, blocks_w=2))
+    out = np.asarray(quantize_window(jnp.asarray(s)))
     for p in range(3):
         qt = T.YQUANT64 if p == 0 else T.CQUANT64
         np.testing.assert_array_equal(
@@ -48,10 +43,10 @@ def test_kernel_extreme_samples():
         )
 
 
-def test_encode_frames_device_pallas_container_identical(rng):
-    """The full device encoder with the fused kernel produces a container
-    byte-identical to the host encoder (shared select-then-pack back half),
-    across a window boundary and with both I and P frames."""
+def test_encode_frames_device_container_identical(rng):
+    """The full device encoder produces a container byte-identical to the
+    host encoder (shared select-then-pack back half), across a window
+    boundary and with both I and P frames."""
     h, w = 24, 32
     base = rng.integers(80, 170, (h, w, 3)).astype(np.uint8)
     frames = [base]
@@ -66,28 +61,24 @@ def test_encode_frames_device_pallas_container_identical(rng):
     cfg = EncodeConfig(frames_per_batch=3)  # forces multiple windows
     a = enc.encode_frames(frames, max_i_interval=4)
     b = enc.encode_frames_device(
-        frames, max_i_interval=4, config=cfg, use_pallas=True
+        frames, max_i_interval=4, config=cfg
     )
     assert a == b
 
 
-def test_encode_window_fused_sharded_and_mesh_device_encoder(rng):
-    """The sharded fused encode (frames over "data", ZERO collectives)
-    matches the single-device kernel elementwise, and the mesh device
+def test_quantize_window_sharded_and_mesh_device_encoder(rng):
+    """The sharded encode step (frames over "data", ZERO collectives)
+    matches the single-device step elementwise, and the mesh device
     encoder built on it produces a byte-identical container."""
-    from mjpeg423_tpu.parallel.encode import encode_window_fused_sharded
+    from mjpeg423_tpu.parallel.encode import quantize_window_sharded
     from mjpeg423_tpu.parallel.mesh import make_mesh
 
     mesh = make_mesh(n_data=8, n_block=1)
     bh, bw, F = 3, 4, 8
     B = bh * bw
     s = rng.integers(0, 256, (3, F, B, 64)).astype(np.uint8)
-    single = np.asarray(encode_window_fused(
-        jnp.asarray(s), blocks_h=bh, blocks_w=bw
-    ))
-    sharded = np.asarray(encode_window_fused_sharded(
-        jnp.asarray(s), mesh=mesh, blocks_h=bh, blocks_w=bw, interpret=True
-    ))
+    single = np.asarray(quantize_window(jnp.asarray(s)))
+    sharded = np.asarray(quantize_window_sharded(jnp.asarray(s), mesh=mesh))
     np.testing.assert_array_equal(sharded, single)
 
     h, w = bh * 8, bw * 8
@@ -101,13 +92,13 @@ def test_encode_window_fused_sharded_and_mesh_device_encoder(rng):
         frames.append(f)
     a = enc.encode_frames(frames, max_i_interval=4)
     b = enc.encode_frames_device(
-        frames, max_i_interval=4, mesh=mesh, use_pallas=True
+        frames, max_i_interval=4, mesh=mesh
     )
     assert a == b
 
 
-def test_pallas_encoded_container_decodes_on_reference(rng):
-    """Cross-check: a container produced by the fused device encoder decodes
+def test_device_encoded_container_decodes_on_reference(rng):
+    """Cross-check: a container produced by the device encoder decodes
     byte-identically on the COMPILED REFERENCE C decoder (closing the loop
     device-encode -> reference-decode, not just container equality)."""
     from tests.oracle import harness
@@ -118,7 +109,7 @@ def test_pallas_encoded_container_decodes_on_reference(rng):
     frames = [
         rng.integers(0, 256, (h, w, 3)).astype(np.uint8) for _ in range(F)
     ]
-    mpg = enc.encode_frames_device(frames, max_i_interval=3, use_pallas=True)
+    mpg = enc.encode_frames_device(frames, max_i_interval=3)
     from mjpeg423_tpu.codec.decoder import decode_stream_array
 
     ours = np.asarray(decode_stream_array(mpg))
@@ -137,12 +128,12 @@ def test_encode_frames_device_overlap_identical_and_propagates(rng):
     from mjpeg423_tpu.utils.config import EncodeConfig
 
     seq = enc.encode_frames_device(
-        frames, max_i_interval=4, use_pallas=True,
+        frames, max_i_interval=4,
         config=EncodeConfig(frames_per_batch=3, overlap_device=False),
     )
     for inflight in (1, 3):
         ov = enc.encode_frames_device(
-            frames, max_i_interval=4, use_pallas=True,
+            frames, max_i_interval=4,
             config=EncodeConfig(frames_per_batch=3, overlap_device=True,
                                 inflight_windows=inflight),
         )
@@ -151,7 +142,7 @@ def test_encode_frames_device_overlap_identical_and_propagates(rng):
     bad = frames[:4] + [rng.integers(0, 256, (h, w + 8, 3)).astype(np.uint8)]
     with pytest.raises(Exception):
         enc.encode_frames_device(
-            bad, max_i_interval=4, use_pallas=True,
+            bad, max_i_interval=4,
             config=EncodeConfig(frames_per_batch=2, overlap_device=True),
         )
 
@@ -178,7 +169,7 @@ def test_encode_frames_device_overlap_consumer_abort(rng):
 
     with pytest.raises(RuntimeError, match="packer fault"):
         enc.encode_frames_device(
-            frames, max_i_interval=4, use_pallas=True,
+            frames, max_i_interval=4,
             entropy_encode=bad_pack,
             config=EncodeConfig(frames_per_batch=2, overlap_device=True),
         )
@@ -211,11 +202,11 @@ def test_encode_frames_device_fetch_i8_identical(rng):
     frames[3] = edge
 
     base = enc.encode_frames_device(
-        frames, max_i_interval=4, use_pallas=True,
+        frames, max_i_interval=4,
         config=EncodeConfig(frames_per_batch=2, overlap_device=True))
     for overlap in (False, True):
         got = enc.encode_frames_device(
-            frames, max_i_interval=4, use_pallas=True,
+            frames, max_i_interval=4,
             config=EncodeConfig(frames_per_batch=2, overlap_device=overlap,
                                 fetch_i8=True))
         assert got == base, f"fetch_i8 diverges (overlap={overlap})"

@@ -49,10 +49,14 @@ def test_encode_frames_device_byte_identical(rng):
 
 
 def test_encode_frames_device_serial_entropy(rng):
+    """The pure-Python bit-packer (serial, no native codec) behind the
+    device step: still byte-identical."""
+    from mjpeg423_tpu.ops import entropy_ref
+
     frames = make_test_frames(rng, num_frames=3, h=24, w=24)
     want = encoder.encode_frames(frames, max_i_interval=24)
     got = encoder.encode_frames_device(
-        frames, max_i_interval=24, parallel_entropy=False
+        frames, max_i_interval=24, entropy_encode=entropy_ref.encode_plane
     )
     assert got == want
 
@@ -82,9 +86,9 @@ def test_encoder_native_default_byte_identical():
 
 
 def test_encode_frames_device_windowed_halo(rng):
-    """Multi-window device encode (frames_per_batch < nf): the cross-window
-    P-candidate rides the halo slot; bytes match the host encoder exactly,
-    including at every window boundary."""
+    """Multi-window device encode (frames_per_batch < nf): the packer's
+    P candidate reads the previous window's last frame; bytes match the
+    host encoder exactly, including at every window boundary."""
     from mjpeg423_tpu.utils.config import EncodeConfig
 
     frames = make_test_frames(rng, num_frames=11, h=32, w=40)

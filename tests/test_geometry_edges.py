@@ -1,7 +1,7 @@
 """Extreme geometries through the production pipeline vs the oracle.
 
 bw=1 (single-block rows), bh=1 (single block-row), and odd sizes stress the
-kernel's lane/tile layouts and the raster reassembly.
+device step's block layouts and the raster reassembly.
 """
 import numpy as np
 import pytest
@@ -19,6 +19,6 @@ def test_pipeline_fused_odd_geometries(h, w):
     frames = make_test_frames(rng, num_frames=4, h=h, w=w, motion=False)
     data = encoder.encode_frames(frames, max_i_interval=2)
     want = decoder.decode_stream_array(data)
-    pipe = DecodePipeline(DecodeConfig(use_pallas=True, frames_per_batch=3))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3))
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)

@@ -76,7 +76,7 @@ def test_cli_info_decode_encode_roundtrip(tmp_path, stream, capsys):
     assert meta["iframe_count_check"] == meta["num_iframes"]
 
     outdir = str(tmp_path / "out")
-    assert cli.main(["decode", mpg, "-o", outdir, "--no-pallas"]) == 0
+    assert cli.main(["decode", mpg, "-o", outdir]) == 0
     files = sorted(os.listdir(outdir))
     assert len(files) == 10
 
@@ -102,7 +102,7 @@ def test_cli_serve(tmp_path, stream, capsys):
         with open(p, "wb") as f:
             f.write(data)
         paths.append(p)
-    assert cli.main(["serve", *paths, "--no-pallas"]) == 0
+    assert cli.main(["serve", *paths]) == 0
 
 
 def test_cli_play_unpaced(tmp_path, stream, capsys):
@@ -110,11 +110,11 @@ def test_cli_play_unpaced(tmp_path, stream, capsys):
     mpg = str(tmp_path / "p.mpg")
     with open(mpg, "wb") as f:
         f.write(data)
-    assert cli.main(["play", mpg, "--no-pace", "--no-pallas"]) == 0
+    assert cli.main(["play", mpg, "--no-pace"]) == 0
 
 
 def test_cli_selftest():
-    assert cli.main(["selftest", "--no-pallas", "--frames", "4"]) == 0
+    assert cli.main(["selftest", "--frames", "4"]) == 0
 
 
 def test_player_state_snapshot(stream):
@@ -122,10 +122,10 @@ def test_player_state_snapshot(stream):
     from mjpeg423_tpu.utils.config import DecodeConfig
 
     data, _ = stream
-    player = Player(data, DecodeConfig(use_pallas=False))
+    player = Player(data, DecodeConfig())
     player.current_frame = 6
     st = player.get_state()
-    player2 = Player(data, DecodeConfig(use_pallas=False))
+    player2 = Player(data, DecodeConfig())
     player2.set_state(st)
     # Snaps to the GOP's I-frame at or before frame 6.
     assert player2.current_frame in player2.index.gop_starts()
@@ -138,7 +138,7 @@ def test_serve_retry_commits_once(stream):
 
     data, want_frames = stream
     calls = {"n": 0}
-    pool = StreamPool(DecodeConfig(use_pallas=False, frames_per_batch=4))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     orig = pool.pipeline.decode
 
     def flaky(d, **kw):
@@ -160,7 +160,7 @@ def test_cli_play_playlist(tmp_path, stream, capsys):
         with open(p, "wb") as f:
             f.write(data)
         paths.append(p)
-    assert cli.main(["play", *paths, "--no-pace", "--no-pallas"]) == 0
+    assert cli.main(["play", *paths, "--no-pace"]) == 0
     err = capsys.readouterr().err
     assert "playlist total: 20 frames" in err
 
@@ -174,7 +174,7 @@ def test_cli_play_out_dir_matches_decode(tmp_path, stream):
     open(mpg, "wb").write(data)
     outdir = str(tmp_path / "played")
     assert cli.main(
-        ["play", mpg, "--no-pace", "--no-pallas", "--out", outdir]
+        ["play", mpg, "--no-pace", "--out", outdir]
     ) == 0
     want = decoder.decode_stream_array(data)
     files = sorted(os.listdir(outdir))
@@ -190,7 +190,7 @@ def test_cli_play_out_ppm(tmp_path, stream):
     open(mpg, "wb").write(data)
     outdir = str(tmp_path / "ppm")
     assert cli.main(
-        ["play", mpg, "--no-pace", "--no-pallas", "--out", outdir,
+        ["play", mpg, "--no-pace", "--out", outdir,
          "--out-format", "ppm"]
     ) == 0
     want = decoder.decode_stream_array(data)
@@ -213,7 +213,7 @@ def test_cli_play_pipe(tmp_path, stream, monkeypatch):
                        "flush": lambda s: None})(),
     )
     assert cli.main(
-        ["play", mpg, "--no-pace", "--no-pallas", "--pipe"]
+        ["play", mpg, "--no-pace", "--pipe"]
     ) == 0
     want = decoder.decode_stream_array(data)
     raw = np.frombuffer(buf.getvalue(), dtype="<u4")
@@ -225,7 +225,7 @@ def test_cli_play_out_pipe_exclusive(tmp_path, stream):
     mpg = str(tmp_path / "v.mpg")
     open(mpg, "wb").write(data)
     with pytest.raises(SystemExit):
-        cli.main(["play", mpg, "--no-pace", "--no-pallas",
+        cli.main(["play", mpg, "--no-pace",
                   "--out", str(tmp_path / "x"), "--pipe"])
 
 
@@ -241,7 +241,7 @@ def test_cli_play_interactive_keys(tmp_path, stream, monkeypatch):
     open(mpg, "wb").write(data)
     monkeypatch.setattr("sys.stdin", io.StringIO("p p f q"))
     assert cli.main(
-        ["play", mpg, "--no-pace", "--no-pallas", "--interactive"]
+        ["play", mpg, "--no-pace", "--interactive"]
     ) == 0
 
 
@@ -271,7 +271,7 @@ def test_cli_play_interactive_tty(tmp_path, stream):
         # key can end this process inside the timeout.
         proc = subprocess.Popen(
             [_sys.executable, "-m", "mjpeg423_tpu.cli", "play", mpg,
-             "--interactive", "--no-pallas", "--loop", "1000",
+             "--interactive", "--loop", "1000",
              "--out", outdir],
             stdin=slave, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             env=env, text=True,
@@ -489,7 +489,7 @@ def test_cli_decode_all_devices(tmp_path, stream):
     open(mpg, "wb").write(data)
     outdir = str(tmp_path / "out")
     assert cli.main([
-        "decode", mpg, "-o", outdir, "--npy", "--no-pallas",
+        "decode", mpg, "-o", outdir, "--npy",
         "--all-devices", "--batch", "3",
     ]) == 0
     arr = np.load(os.path.join(outdir, "frameframes.npy"))
@@ -542,7 +542,7 @@ def test_cli_thumbs(tmp_path, stream, capsys):
     mpg = str(tmp_path / "t.mpg")
     open(mpg, "wb").write(data)
     outdir = str(tmp_path / "thumbs")
-    assert cli.main(["thumbs", mpg, "-o", outdir, "--no-pallas"]) == 0
+    assert cli.main(["thumbs", mpg, "-o", outdir]) == 0
     from mjpeg423_tpu.core import format as fmt
 
     n_if = int(fmt.index_frames(data).is_iframe.sum())
@@ -556,7 +556,7 @@ def test_cli_serve_packed_thumbs(tmp_path, stream, capsys):
     open(p1, "wb").write(data)
     open(p2, "wb").write(data)
     assert cli.main([
-        "serve", p1, p2, "--packed", "--thumbs", "--no-pallas",
+        "serve", p1, p2, "--packed", "--thumbs",
     ]) == 0
 
 

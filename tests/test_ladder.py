@@ -32,7 +32,7 @@ def test_ladder_1_qvga_i_only():
     data = encoder.encode_frames_device(frames, max_i_interval=1)  # all I
     mpg = parse_file(data)
     assert all(f.is_iframe for f in mpg.frames)
-    got = DecodePipeline(DecodeConfig(use_pallas=False)).decode_array(data)
+    got = DecodePipeline(DecodeConfig()).decode_array(data)
     ref = Oracle().decode(data, 4, 320, 240).astype(np.uint32)
     np.testing.assert_array_equal(got, ref)
 
@@ -44,7 +44,7 @@ def test_ladder_2_qvga_ip():
     data = encoder.encode_frames_device(frames, max_i_interval=4)
     mpg = parse_file(data)
     assert any(not f.is_iframe for f in mpg.frames)  # P frames present
-    got = DecodePipeline(DecodeConfig(use_pallas=False)).decode_array(data)
+    got = DecodePipeline(DecodeConfig()).decode_array(data)
     ref = Oracle().decode(data, 8, 320, 240).astype(np.uint32)
     np.testing.assert_array_equal(got, ref)
 
@@ -57,7 +57,7 @@ def test_ladder_3_vga_multigop():
     mpg = parse_file(data)
     assert len(mpg.trailer) >= 2  # multiple GOPs
     got = DecodePipeline(
-        DecodeConfig(use_pallas=False, frames_per_batch=4)
+        DecodeConfig(frames_per_batch=4)
     ).decode_array(data)
     ref = Oracle().decode(data, 10, 640, 480).astype(np.uint32)
     np.testing.assert_array_equal(got, ref)
@@ -99,7 +99,7 @@ def test_ladder_5_concurrent_streams():
         streams.append(d)
         oracles.append(decoder.decode_stream_array(d))
     got = {}
-    pool = StreamPool(DecodeConfig(use_pallas=False, frames_per_batch=3))
+    pool = StreamPool(DecodeConfig(frames_per_batch=3))
     stats = pool.decode_all(
         streams,
         sink=lambda si, win: got.setdefault(si, {}).update(
@@ -130,7 +130,7 @@ def test_ladder_6_1080p_multi_gop_vs_oracle():
     ref = Oracle().decode(data, nf, w, h).astype(np.uint32)
 
     got = DecodePipeline(
-        DecodeConfig(use_pallas=False, frames_per_batch=4)
+        DecodeConfig(frames_per_batch=4)
     ).decode_array(data)
     np.testing.assert_array_equal(got, ref)
 

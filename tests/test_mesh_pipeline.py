@@ -1,7 +1,7 @@
 """Mesh-sharded streaming pipeline + GOP-aligned sharded batch decode.
 
 All on the 8-device virtual CPU mesh (conftest).  Bit-exactness target is
-the NumPy oracle decoder; the fused Pallas kernel runs in interpret mode.
+the NumPy oracle decoder.
 """
 import numpy as np
 import pytest
@@ -28,29 +28,21 @@ def test_mesh_pipeline_xla_bit_exact(stream):
     data, want = stream
     mesh = make_mesh(n_data=8, n_block=1)
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=3, use_pallas=False), mesh=mesh
+        DecodeConfig(frames_per_batch=3), mesh=mesh
     )
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)
 
 
-def test_mesh_pipeline_fused_interpret_bit_exact(stream, coef_major=None):
+@pytest.mark.parametrize("n_data,window", [(4, 4), (2, 3)])
+def test_mesh_pipeline_bit_exact(stream, n_data, window):
+    """Other mesh sizes and windows: partitions of several GOPs, windows
+    that split them."""
     data, want = stream
-    mesh = make_mesh(n_data=4, n_block=1)
-    # use_pallas=True on CPU -> interpret mode: the FUSED kernel itself runs
-    # under shard_map on every device of the mesh.
-    pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=4, use_pallas=True,
-                     coef_major=coef_major), mesh=mesh
-    )
+    mesh = make_mesh(n_data=n_data, n_block=1)
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=window), mesh=mesh)
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)
-
-
-def test_mesh_pipeline_fused_interpret_bit_exact_cm(stream):
-    """Coefficient-major serving layout through the mesh path (the auto
-    default is block-major; cm stays covered explicitly)."""
-    test_mesh_pipeline_fused_interpret_bit_exact(stream, coef_major=True)
 
 
 def test_mesh_pipeline_seek(stream):
@@ -61,7 +53,7 @@ def test_mesh_pipeline_seek(stream):
     starts = fmt.index_frames(data).gop_starts()
     s = starts[2]
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=3, use_pallas=False), mesh=mesh
+        DecodeConfig(frames_per_batch=3), mesh=mesh
     )
     got = pipe.decode_array(data, start_frame=s)
     np.testing.assert_array_equal(got, want[s:])
@@ -74,7 +66,7 @@ def test_mesh_pipeline_more_devices_than_gops():
     want = decoder.decode_stream_array(data)
     mesh = make_mesh(n_data=8, n_block=1)
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=2, use_pallas=False), mesh=mesh
+        DecodeConfig(frames_per_batch=2), mesh=mesh
     )
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)
@@ -83,7 +75,7 @@ def test_mesh_pipeline_more_devices_than_gops():
 def test_mesh_pipeline_rejects_block_axis(stream):
     data, _ = stream
     mesh = make_mesh(n_data=4, n_block=2)
-    pipe = DecodePipeline(DecodeConfig(use_pallas=False), mesh=mesh)
+    pipe = DecodePipeline(DecodeConfig(), mesh=mesh)
     with pytest.raises(ValueError):
         list(pipe.decode(data))
 
@@ -94,16 +86,6 @@ def test_sharded_batch_gop_aligned_auto(stream):
     data, want = stream
     mesh = make_mesh(n_data=8, n_block=1)
     got = np.asarray(decode_stream_sharded(data, mesh))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_sharded_batch_gop_aligned_fused(stream):
-    """The fused kernel under shard_map via the GOP-aligned batch driver."""
-    data, want = stream
-    mesh = make_mesh(n_data=4, n_block=1)
-    got = np.asarray(
-        decode_stream_sharded(data, mesh, use_pallas=True, interpret=True)
-    )
     np.testing.assert_array_equal(got, want)
 
 
@@ -166,14 +148,13 @@ def test_sharded_encode_byte_identical(stream):
     )
 
 
-def test_sharded_carry_path_with_pallas_transform(stream):
-    """Non-GOP-aligned sharding + the v1 Pallas transform (interpret):
-    the cross-device carry all-gather composed with the pallas kernel."""
+@pytest.mark.parametrize("n_data,n_block", [(2, 1), (8, 1)])
+def test_sharded_carry_path_data_only(stream, n_data, n_block):
+    """Non-GOP-aligned sharding over the data axis alone: the cross-device
+    carry all-gather with every frame split mid-GOP."""
     data, want = stream
-    mesh = make_mesh(n_data=2, n_block=1)
-    got = np.asarray(decode_stream_sharded(
-        data, mesh, gop_aligned=False, use_pallas=True, interpret=True
-    ))
+    mesh = make_mesh(n_data=n_data, n_block=n_block)
+    got = np.asarray(decode_stream_sharded(data, mesh, gop_aligned=False))
     np.testing.assert_array_equal(got, want)
 
 
@@ -185,7 +166,7 @@ def test_mesh_pipeline_early_stop_reaps_producer(stream):
     base = threading.active_count()
     mesh = make_mesh(n_data=4, n_block=1)
     pipe = DecodePipeline(
-        DecodeConfig(use_pallas=False, frames_per_batch=2,
+        DecodeConfig(frames_per_batch=2,
                      prefetch_batches=1),
         mesh=mesh,
     )
@@ -194,31 +175,6 @@ def test_mesh_pipeline_early_stop_reaps_producer(stream):
     gen.close()
     _time.sleep(0.2)
     assert threading.active_count() <= base + 1
-
-
-def test_mesh_step_fold_matches_pipeline_window():
-    """Regression (round-2 review): the mesh step's lane fold must come
-    from the configured window, not the default — at (bh=20, bw=48) the
-    fold differs between W=16 and W=24, which crashed the TPU mesh path
-    at trace time."""
-    import jax
-    import jax.numpy as jnp
-
-    from mjpeg423_tpu.runtime.pipeline import auto_rows_per_step
-
-    bh, bw = 20, 48
-    kk = auto_rows_per_step(bh, bw, 16)
-    assert kk != auto_rows_per_step(bh, bw, 24)
-
-    mesh = make_mesh(n_data=1, n_block=1)
-    pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=16, use_pallas=True), mesh=mesh
-    )
-    step = pipe._get_mesh_step(bh, bw, "cm")
-    amps = jnp.zeros((1, 3, 16, bh // kk, 64, kk * bw), jnp.int16)
-    seg = jnp.zeros((1, 16), bool)
-    carry = jnp.zeros((1, 3, bh // kk, 64, kk * bw), jnp.int16)
-    jax.eval_shape(step, amps, seg, carry)  # raises if the folds disagree
 
 
 def test_mesh_pipeline_long_stream_soak():
@@ -237,57 +193,8 @@ def test_mesh_pipeline_long_stream_soak():
     want = decoder.decode_stream_array(data)
     mesh = make_mesh(n_data=8, n_block=1)
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=8, prefetch_batches=1,
-                     use_pallas=False),
+        DecodeConfig(frames_per_batch=8, prefetch_batches=1),
         mesh=mesh,
     )
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)
-
-
-def test_sharded3_stacked_input_bit_exact(stream):
-    """The stacked-input fused sharded entry (no per-shard plane re-stack)
-    matches the oracle."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from mjpeg423_tpu.parallel import decode_transform_sharded3
-    from mjpeg423_tpu.parallel.mesh import DATA_AXIS, BLOCK_AXIS
-    from mjpeg423_tpu.parallel.multihost import partition_gops
-    import mjpeg423_tpu.core.format as fmt
-    from mjpeg423_tpu.runtime import DecodePipeline
-    from mjpeg423_tpu.utils.config import DecodeConfig
-
-    data, want = stream
-    index = fmt.index_frames(data)
-    nf = index.num_frames
-    mesh = make_mesh(n_data=4, n_block=1)
-    parts = partition_gops(index.gop_starts(), nf, 4)
-    fmax = max(p.num_frames for p in parts)
-    nb = index.header.blocks_per_plane
-    pipe = DecodePipeline(DecodeConfig(coef_major=False))
-    amps = np.zeros((3, 4 * fmax, nb, 64), np.int16)
-    seg = np.zeros(4 * fmax, bool)
-    for p in parts:
-        local = pipe.parse_window(data, index, p.frame_lo, p.num_frames)
-        amps[:, p.host * fmax:p.host * fmax + p.num_frames] = local
-        seg[p.host * fmax:p.host * fmax + p.num_frames] = (
-            index.is_iframe[p.frame_lo:p.frame_hi]
-        )
-    a3 = jax.device_put(amps, NamedSharding(
-        mesh, P(None, DATA_AXIS, BLOCK_AXIS, None)))
-    seg_d = jax.device_put(seg, NamedSharding(mesh, P(DATA_AXIS)))
-    blocked = np.asarray(decode_transform_sharded3(
-        a3, seg_d, mesh=mesh, blocks_h=index.header.blocks_h,
-        blocks_w=index.header.blocks_w, interpret=True, raster=False,
-    ))
-    from mjpeg423_tpu.ops.transform_fused import blocked_to_raster_host
-
-    raster = blocked_to_raster_host(
-        blocked, index.header.blocks_h, index.header.blocks_w
-    )
-    for p in parts:
-        np.testing.assert_array_equal(
-            raster[p.host * fmax:p.host * fmax + p.num_frames],
-            want[p.frame_lo:p.frame_hi],
-        )

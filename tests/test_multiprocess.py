@@ -44,7 +44,7 @@ index = fmt.index_frames(data)
 part = multihost.local_partition(index.gop_starts(), index.num_frames)
 
 # Decode only the local partition (GOP-aligned start -> zero carry is valid).
-pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, use_pallas=False))
+pipe = DecodePipeline(DecodeConfig(frames_per_batch=4))
 frames = {}
 if part.num_frames:
     for win in pipe.decode(data, start_frame=part.frame_lo):
@@ -146,7 +146,7 @@ part = multihost.local_partition(index.gop_starts(), index.num_frames)
 # sub-partitions -- SURVEY.md section 7 step 6 composed with step 5).
 mesh = make_mesh(n_data=2, n_block=1, devices=jax.local_devices())
 pipe = DecodePipeline(
-    DecodeConfig(frames_per_batch=2, use_pallas=False), mesh=mesh
+    DecodeConfig(frames_per_batch=2), mesh=mesh
 )
 frames = {}
 if part.num_frames:

@@ -1,10 +1,10 @@
-"""Pathological int16-overflow streams: fused kernel vs the C reference.
+"""Pathological int16-overflow streams: the pipeline vs the C reference.
 
 SURVEY.md hard-parts: C accumulates P deltas in DCTELEM int16 with
 wraparound; every build path must reproduce that exactly.  This crafts
 streams whose coefficient state wraps int16 repeatedly and byte-compares the
-production (fused-kernel pipeline) output against the compiled reference C
-decoder.
+production pipeline output (at two window sizes) against the compiled
+reference C decoder.
 """
 import numpy as np
 import pytest
@@ -48,7 +48,7 @@ def _craft_stream(rng, num_frames=7):
 def test_fused_pipeline_wraps_exactly_like_c(rng):
     data, nf = _craft_stream(rng)
     ref = Oracle().decode(data, nf, W, H).astype(np.uint32)
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3, use_pallas=True))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3))
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, ref)
 
@@ -56,6 +56,6 @@ def test_fused_pipeline_wraps_exactly_like_c(rng):
 def test_xla_pipeline_wraps_exactly_like_c(rng):
     data, nf = _craft_stream(rng)
     ref = Oracle().decode(data, nf, W, H).astype(np.uint32)
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4))
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, ref)

@@ -62,7 +62,7 @@ def test_decode_sharded_matches_oracle(stream, n_data, n_block):
 
 def test_decode_sharded_fused_gop_aligned(rng_module):
     # Synthetic amps with I-frames exactly at the 4-way shard boundaries:
-    # the fused kernel runs the recurrence shard-locally with zero carry.
+    # the recurrence runs shard-locally with zero carry.
     f, bh, bw = 16, 4, 8
     b = bh * bw
     amps = rng_module.integers(-200, 200, size=(3, f, b, 64)).astype(np.int16)
@@ -76,25 +76,7 @@ def test_decode_sharded_fused_gop_aligned(rng_module):
     mesh = make_mesh(n_data=4, n_block=1)
     args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
     got = decode_transform_sharded(
-        *args, mesh=mesh, blocks_h=bh, blocks_w=bw,
-        gop_aligned=True, use_pallas=True, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(got), want)
-
-
-def test_decode_sharded_pallas_interpret(stream):
-    coefs, want = stream
-    mesh = make_mesh(n_data=2, n_block=1)
-    args = shard_inputs(
-        mesh, coefs.y, coefs.cb, coefs.cr, coefs.frame_types == 0
-    )
-    got = decode_transform_sharded(
-        *args,
-        mesh=mesh,
-        blocks_h=coefs.height // 8,
-        blocks_w=coefs.width // 8,
-        use_pallas=True,
-        interpret=True,
+        *args, mesh=mesh, blocks_h=bh, blocks_w=bw, gop_aligned=True,
     )
     np.testing.assert_array_equal(np.asarray(got), want)
 
@@ -113,32 +95,3 @@ def test_decode_stream_sharded_convenience(stream):
     mesh = make_mesh(n_data=4, n_block=2)
     got = np.asarray(decode_stream_sharded(data, mesh))
     np.testing.assert_array_equal(got, want)
-
-
-def test_sharded_cm_matches_sharded3(rng):
-    """The coefficient-major sharded entry produces the same raster as the
-    block-major stacked entry on GOP-aligned shards."""
-    import jax.numpy as jnp
-
-    from mjpeg423_tpu.parallel import (
-        decode_transform_sharded3, decode_transform_sharded_cm, make_mesh,
-    )
-
-    bh, bw, f, k = 4, 4, 8, 2
-    b = bh * bw
-    mesh = make_mesh(n_data=8, n_block=1)
-    amps = np.zeros((3, f, b, 64), np.int16)
-    amps[..., :6] = rng.integers(-40, 40, (3, f, b, 6))
-    seg = np.ones(f, bool)  # every shard (1 frame each) starts at an I-frame
-    a3 = jnp.asarray(amps)
-    out3 = np.asarray(decode_transform_sharded3(
-        a3, jnp.asarray(seg), mesh=mesh, blocks_h=bh, blocks_w=bw,
-        interpret=True, raster=True,
-    ))
-    from mjpeg423_tpu.ops.transform_fused import to_cm
-
-    out_cm = np.asarray(decode_transform_sharded_cm(
-        jnp.asarray(to_cm(amps, bh, bw, k)), jnp.asarray(seg), mesh=mesh,
-        blocks_h=bh, blocks_w=bw, interpret=True, raster=True,
-    ))
-    np.testing.assert_array_equal(out_cm, out3)

@@ -25,6 +25,6 @@ def test_vga_30_frames_bit_exact_vs_reference():
     frames = make_test_frames(rng, num_frames=30, h=480, w=640)
     data = encoder.encode_frames_device(frames, max_i_interval=24)
     ref = Oracle().decode(data, 30, 640, 480).astype(np.uint32)
-    pipe = DecodePipeline(DecodeConfig(use_pallas=False, frames_per_batch=8))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=8))
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, ref)

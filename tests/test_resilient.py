@@ -18,7 +18,6 @@ from conftest import make_test_frames
 
 def _cfg(**kw):
     kw.setdefault("frames_per_batch", 5)
-    kw.setdefault("use_pallas", False)
     return DecodeConfig(**kw)
 
 
@@ -392,7 +391,7 @@ def test_cli_resilient(tmp_path, stream):
     from mjpeg423_tpu import cli
 
     rc = cli.main([
-        "decode", str(src), "-o", str(out), "--resilient", "--no-pallas",
+        "decode", str(src), "-o", str(out), "--resilient",
         "--batch", "5",
     ])
     assert rc == 0
@@ -418,8 +417,7 @@ def test_cli_resilient_npy_keeps_frame_alignment(tmp_path, stream):
     from mjpeg423_tpu import cli
 
     rc = cli.main([
-        "decode", str(src), "-o", str(out), "--resilient", "--npy",
-        "--no-pallas", "--batch", "5",
+        "decode", str(src), "-o", str(out), "--resilient", "--npy", "--batch", "5",
     ])
     assert rc == 0
     arr = np.load(out / "frameframes.npy")
@@ -434,16 +432,15 @@ def test_cli_resilient_npy_keeps_frame_alignment(tmp_path, stream):
     assert (arr[bad_f:nxt] == 0).all()
 
 
-class TestPackedInputResilience:
-    def test_corrupt_plane_with_pack_i8(self, stream):
-        """Resilient decode with the compressed i8 device input: the
-        corrupt GOP range is skipped identically and every delivered
-        frame stays bit-exact (the i8 parse raises on the corrupt
-        window exactly like the int16 path, so recovery logic is
-        format-independent)."""
+class TestWindowIndependence:
+    @pytest.mark.parametrize("window", [2, 7])
+    def test_corrupt_plane_any_window(self, stream, window):
+        """Resilient decode at window sizes that split GOPs differently:
+        the corrupt GOP range is skipped identically and every delivered
+        frame stays bit-exact (recovery keys on frames, not windows)."""
         data, want, index = stream
         bad = corrupt_plane(data, index, frame=9, plane=1)
-        pipe = DecodePipeline(_cfg(use_pallas=True, pack_i8=True))
+        pipe = DecodePipeline(_cfg(frames_per_batch=window))
         got, log = pipe.decode_resilient_array(bad)
         ref_pipe = DecodePipeline(_cfg())
         ref, ref_log = ref_pipe.decode_resilient_array(bad)

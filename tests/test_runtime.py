@@ -21,7 +21,7 @@ def stream():
 def test_pipeline_full_decode_matches_oracle(stream):
     data, want = stream
     # Window size NOT aligned to the GOP structure: exercises the carry.
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5))
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)
 
@@ -34,14 +34,14 @@ def test_pipeline_seek_from_iframe(stream):
     starts = index.gop_starts()
     assert len(starts) >= 2
     s = starts[1]
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4))
     got = pipe.decode_array(data, start_frame=s)
     np.testing.assert_array_equal(got, want[s:])
 
 
 def test_pipeline_rejects_non_iframe_start(stream):
     data, _ = stream
-    pipe = DecodePipeline(DecodeConfig(use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig())
     with pytest.raises(ValueError):
         list(pipe.decode(data, start_frame=1))
 
@@ -49,7 +49,7 @@ def test_pipeline_rejects_non_iframe_start(stream):
 def test_player_unpaced_delivers_all(stream):
     data, want = stream
     got = {}
-    player = Player(data, DecodeConfig(frames_per_batch=6, use_pallas=False))
+    player = Player(data, DecodeConfig(frames_per_batch=6))
     stats = player.play(sink=lambda fi, fr: got.__setitem__(fi, fr), paced=False)
     assert stats.frames_delivered == want.shape[0]
     for fi, fr in got.items():
@@ -58,7 +58,7 @@ def test_player_unpaced_delivers_all(stream):
 
 def test_player_ff_rw_land_on_iframes(stream):
     data, want = stream
-    player = Player(data, DecodeConfig(fps=24.0, use_pallas=False))
+    player = Player(data, DecodeConfig(fps=24.0))
     starts = player.index.gop_starts()
     # 5 s @ 24 fps = 120 frames > stream length: FF stays, RW goes to start.
     assert player.fast_forward() == 0
@@ -75,7 +75,7 @@ def test_player_paced_counts_late_frames(stream):
     data, want = stream
     # Absurd fps -> every frame misses its deadline except ones that arrive
     # within the same tick; just assert accounting fields are consistent.
-    player = Player(data, DecodeConfig(fps=100000.0, use_pallas=False))
+    player = Player(data, DecodeConfig(fps=100000.0))
     stats = player.play(paced=True, max_frames=8)
     assert stats.frames_delivered == 8
     assert 0 <= stats.frames_late <= 8
@@ -85,7 +85,7 @@ def test_pipeline_surfaces_corrupt_stream(stream):
     data, _ = stream
     # Truncate mid-payload: the frame-size chain walks past the buffer.
     bad = data[: len(data) // 3]
-    pipe = DecodePipeline(DecodeConfig(use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig())
     with pytest.raises(Exception):
         pipe.decode_array(bad)
 
@@ -102,7 +102,7 @@ def test_player_interactive_pause_ff_rw_stop():
     want = decoder.decode_stream_array(data)
 
     player = Player(data, DecodeConfig(
-        fps=24.0, use_pallas=False, frames_per_batch=4
+        fps=24.0, frames_per_batch=4
     ))
     player.SKIP_SECONDS = 0.5  # skip = 12 frames @ 24 fps
     starts = player.index.gop_starts()
@@ -165,7 +165,7 @@ def test_pipeline_raises_on_midstream_corrupt_plane(stream):
     bad = bytearray(data)
     bad[o:o + ln] = b"\xff" * ln  # run-15/size-15 symbols: zig-zag overrun
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=5, use_pallas=False)
+        DecodeConfig(frames_per_batch=5)
     )
     with pytest.raises(ValueError):
         pipe.decode_array(bytes(bad))
@@ -182,7 +182,6 @@ def test_pipeline_bounded_lookahead():
     data = encoder.encode_frames(frames, max_i_interval=6)
     cfg = DecodeConfig(
         frames_per_batch=2, prefetch_batches=1, num_output_buffers=1,
-        use_pallas=False,
     )
     pipe = DecodePipeline(cfg)
     seen = []
@@ -208,7 +207,7 @@ def test_pipeline_early_stop_reaps_producer(stream):
     data, _ = stream
     base = threading.active_count()
     pipe = DecodePipeline(
-        DecodeConfig(use_pallas=False, frames_per_batch=2, prefetch_batches=1)
+        DecodeConfig(frames_per_batch=2, prefetch_batches=1)
     )
     gen = pipe.decode(data)
     next(gen)       # consume one window
@@ -221,7 +220,7 @@ def test_pipeline_warmup_precompiles(stream):
     """warmup() compiles the step for a geometry; decode then reuses the
     cached step (no new cache entries)."""
     data, want = stream
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5))
     pipe.warmup(64, 48)
     n_cached = len(pipe._step_cache)
     assert n_cached >= 1
@@ -239,7 +238,7 @@ def test_pipeline_warmup_mesh():
     want = decoder.decode_stream_array(data)
     mesh = make_mesh(n_data=4, n_block=1)
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=2, use_pallas=False), mesh=mesh
+        DecodeConfig(frames_per_batch=2), mesh=mesh
     )
     pipe.warmup(16, 16)
     n_cached = len(pipe._step_cache)
@@ -254,7 +253,7 @@ def test_pipeline_end_frame_bound(stream):
 
     starts = fmt.index_frames(data).gop_starts()
     lo, hi = starts[1], starts[2]
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4))
     got = pipe.decode_array(data, start_frame=lo, end_frame=hi)
     np.testing.assert_array_equal(got, want[lo:hi])
 
@@ -268,7 +267,7 @@ def test_pipeline_end_frame_bound_mesh(stream):
     starts = fmt.index_frames(data).gop_starts()
     lo, hi = starts[0], starts[2]
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=3, use_pallas=False),
+        DecodeConfig(frames_per_batch=3),
         mesh=make_mesh(n_data=2, n_block=1),
     )
     got = pipe.decode_array(data, start_frame=lo, end_frame=hi)
@@ -289,7 +288,7 @@ def test_pipeline_decodes_mmap_buffer(tmp_path):
     with open(p, "rb") as f:
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=3, use_pallas=False)
+            DecodeConfig(frames_per_batch=3)
         )
         got = pipe.decode_array(mm)
         mm.close()
@@ -305,7 +304,7 @@ class TestDecodeIframes:
         from mjpeg423_tpu.core import format as fmt
 
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=5, use_pallas=False)
+            DecodeConfig(frames_per_batch=5)
         )
         idx, thumbs = pipe.decode_iframes_array(data)
         index = fmt.index_frames(data)
@@ -317,7 +316,7 @@ class TestDecodeIframes:
         # batch 3 does not divide the I-frame count (noise content makes
         # smaller-wins insert extra I's): exercises the padded tail window
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=3, use_pallas=False)
+            DecodeConfig(frames_per_batch=3)
         )
         idx, thumbs = pipe.decode_iframes_array(data)
         assert len(idx) % 3 != 0 and len(idx) > 3
@@ -326,7 +325,7 @@ class TestDecodeIframes:
     def test_stop_predicate(self, stream):
         data, _ = stream
         pipe = DecodePipeline(DecodeConfig(
-            frames_per_batch=2, use_pallas=False, num_output_buffers=1,
+            frames_per_batch=2, num_output_buffers=1,
         ))
         n_if = len(pipe.decode_iframes_array(data)[0])
         got = []
@@ -361,7 +360,7 @@ class TestDecodeStreams:
     def test_matches_per_clip_decode(self, rng, batch):
         clips = self._clips(rng, [7, 2, 11, 1, 4])
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=batch, use_pallas=False)
+            DecodeConfig(frames_per_batch=batch)
         )
         got = pipe.decode_streams_arrays(clips)
         for data, g in zip(clips, got):
@@ -378,7 +377,7 @@ class TestDecodeStreams:
         mid[24] = 1  # frame 0: I -> P (decoder accepts: delta from zero)
         clips[1] = bytes(mid)
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=4, use_pallas=False)
+            DecodeConfig(frames_per_batch=4)
         )
         got = pipe.decode_streams_arrays(clips)
         for data, g in zip(clips, got):
@@ -389,14 +388,14 @@ class TestDecodeStreams:
     def test_geometry_mismatch_rejected(self, rng):
         a = self._clips(rng, [3], h=24, w=32)[0]
         b = self._clips(rng, [3], h=32, w=32)[0]
-        pipe = DecodePipeline(DecodeConfig(use_pallas=False))
+        pipe = DecodePipeline(DecodeConfig())
         with pytest.raises(ValueError, match="same-geometry"):
             next(pipe.decode_streams([a, b]))
 
     def test_empty_and_order(self, rng):
         clips = self._clips(rng, [2, 3])
         pipe = DecodePipeline(
-            DecodeConfig(frames_per_batch=4, use_pallas=False)
+            DecodeConfig(frames_per_batch=4)
         )
         seen = [(si, fi) for si, fi, _ in pipe.decode_streams(clips)]
         assert seen == [(0, 0), (0, 1), (1, 0), (1, 1), (1, 2)]
@@ -412,7 +411,7 @@ def test_decode_streams_iframes_only_thumbnail_farm(rng):
     for n in (9, 4, 7):
         frames = make_test_frames(rng, num_frames=n, h=24, w=32)
         clips.append(encoder.encode_frames(frames, max_i_interval=3))
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4))
     per: dict[int, dict[int, np.ndarray]] = {}
     for si, fi, frame in pipe.decode_streams(clips, iframes_only=True):
         per.setdefault(si, {})[fi] = frame
@@ -426,13 +425,12 @@ def test_decode_streams_iframes_only_thumbnail_farm(rng):
 
 def test_decode_device_resident(stream):
     """device_resident=True yields device arrays (no host transfer); the
-    reassembled + rasterized frames match the standard decode."""
+    reassembled frames match the standard decode."""
     data, want = stream
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5, use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5))
     got = np.empty_like(want)
     for win in pipe.decode(data, device_resident=True):
         host = np.asarray(win.frames)  # consumer-side transfer
-        host = pipe._to_raster(host, 48 // 8, 64 // 8)
         got[win.start_frame:win.start_frame + win.count] = host[:win.count]
     np.testing.assert_array_equal(got, want)
 
@@ -448,7 +446,7 @@ def test_decode_streams_abandoned_generator_cleans_up(rng):
         clips.append(encoder.encode_frames(frames, max_i_interval=3))
     base = threading.active_count()
     pipe = DecodePipeline(
-        DecodeConfig(frames_per_batch=2, use_pallas=False,
+        DecodeConfig(frames_per_batch=2,
                      prefetch_batches=2)
     )
     gen = pipe.decode_streams(clips)
@@ -468,8 +466,7 @@ def test_latency_mode_bit_identical(stream):
     pixels are bit-identical to the pipelined default, across a multi-GOP
     stream and from a mid-stream seek."""
     data, _ = stream
-    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5,
-                                       use_pallas=False))
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5))
     base = [
         (win.start_frame, win.count, np.asarray(win.frames).copy())
         for win in pipe.decode(data)

@@ -41,24 +41,6 @@ def test_downscale_raster_matches_oracle(rng_mod):
         np.testing.assert_array_equal(got, S.downscale_raster_host(x, f))
 
 
-def test_downscale_blocked_matches_raster(rng_mod):
-    # Blocked-layout downscale must equal rasterize-then-downscale.
-    import jax.numpy as jnp
-
-    from mjpeg423_tpu.ops.transform_fused import blocked_to_raster_host
-
-    bh, bw, k = 6, 8, 2
-    blocked = rng_mod.integers(
-        0, 2**32, size=(4, 8, bh // k, 8, k * bw), dtype=np.uint32
-    )
-    raster = blocked_to_raster_host(blocked, bh, bw)
-    for f in (2, 4):
-        got = np.asarray(S.downscale_blocked(jnp.asarray(blocked), bh, bw, f))
-        np.testing.assert_array_equal(
-            got, S.downscale_raster_host(np.asarray(raster), f)
-        )
-
-
 def test_bad_factor_raises(rng_mod):
     x = np.zeros((1, 8, 8), np.uint32)
     with pytest.raises(ValueError, match="scale"):
@@ -67,12 +49,10 @@ def test_bad_factor_raises(rng_mod):
         S.downscale_raster_host(x, 16)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_decode_scaled(stream, full, use_pallas):
-    pipe = DecodePipeline(DecodeConfig(
-        use_pallas=use_pallas, frames_per_batch=5
-    ))
-    got = pipe.decode_array(stream, scale=2)
+@pytest.mark.parametrize("latency", [False, True])
+def test_decode_scaled(stream, full, latency):
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=5))
+    got = pipe.decode_array(stream, scale=2, latency=latency)
     np.testing.assert_array_equal(got, S.downscale_raster_host(full, 2))
 
 

@@ -24,7 +24,7 @@ def test_pool_decodes_concurrent_streams_bit_exact():
         for j in range(win.count):
             got[si][win.start_frame + j] = win.frames[j]
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     stats = pool.decode_all(streams, sink=sink, max_concurrent=2)
 
     assert stats.streams == 3
@@ -51,7 +51,7 @@ def test_pool_bounds_worker_threads():
         peak.append(threading.active_count())
 
     before = threading.active_count()
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     stats = pool.decode_all(streams, sink=sink, max_concurrent=3)
     assert stats.frames == 4 * 24
     # 3 workers + each stream's pipeline producer threads; the old
@@ -77,7 +77,7 @@ def test_pool_retry_surfaces_attempt_to_sink():
             fail_once["done"] = True
             raise RuntimeError("transient sink failure")
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     stats = pool.decode_all([data], sink=sink, retries=1)
     assert stats.frames == want.shape[0]
     attempts = {a for _, _, a in deliveries}
@@ -92,7 +92,7 @@ def test_pool_two_arg_sink_still_works():
     frames = make_test_frames(rng, num_frames=5, h=16, w=16)
     data = encoder.encode_frames(frames, max_i_interval=3)
     seen = []
-    pool = StreamPool(DecodeConfig(frames_per_batch=3, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=3))
     stats = pool.decode_all([data], sink=lambda si, w: seen.append(w.count))
     assert sum(seen) == stats.frames == 5
 
@@ -118,7 +118,7 @@ def test_pool_spreads_streams_over_devices():
             got[si][win.start_frame + j] = win.frames[j]
 
     pool = StreamPool(
-        DecodeConfig(frames_per_batch=3, use_pallas=False),
+        DecodeConfig(frames_per_batch=3),
         devices=jax.devices(),
     )
     assert len(pool.pipelines) == len(jax.devices())
@@ -140,7 +140,7 @@ def test_pool_kwargs_sink_gets_two_args():
     def sink(si, win, **kw):
         seen.append(win.count)
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=3, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=3))
     stats = pool.decode_all([data], sink=sink)
     assert sum(seen) == stats.frames == 4
 
@@ -159,7 +159,7 @@ def test_decode_all_packed_matches(rng):
         for i in range(win.count):
             got[(si, win.start_frame + i)] = win.frames[i]
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     stats = pool.decode_all_packed(clips, sink=sink)
     assert stats.frames == 15
     for si, data in enumerate(clips):
@@ -174,7 +174,7 @@ def test_decode_all_packed_buckets_geometries(rng):
         make_test_frames(rng, num_frames=3, h=24, w=32), max_i_interval=4)
     b = encoder.encode_frames(
         make_test_frames(rng, num_frames=2, h=16, w=16), max_i_interval=4)
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     stats = pool.decode_all_packed([a, b, a])
     assert stats.frames == 8
 
@@ -190,7 +190,7 @@ def test_decode_all_packed_splits_single_geometry_over_pipelines(rng):
         clips.append(encoder.encode_frames(frames, max_i_interval=3))
     d = jax.devices()[0]
     pool = StreamPool(
-        DecodeConfig(frames_per_batch=3, use_pallas=False), devices=[d, d]
+        DecodeConfig(frames_per_batch=3), devices=[d, d]
     )
     assert len(pool.pipelines) == 2
     got: dict[tuple[int, int], np.ndarray] = {}
@@ -222,7 +222,7 @@ def test_decode_all_packed_iframes_only(rng):
         for i in range(win.count):
             got[(si, win.start_frame + i)] = win.frames[i]
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=3, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=3))
     stats = pool.decode_all_packed(clips, sink=sink, iframes_only=True)
     n_if = 0
     for si, data in enumerate(clips):
@@ -239,7 +239,7 @@ def test_decode_all_packed_windows_bounded(rng):
     frames = make_test_frames(rng, num_frames=13, h=16, w=16)
     data = encoder.encode_frames(frames, max_i_interval=4)
     counts = []
-    pool = StreamPool(DecodeConfig(frames_per_batch=3, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=3))
     pool.decode_all_packed([data], sink=lambda si, win: counts.append(win.count))
     assert max(counts) <= 3 and sum(counts) == 13
 
@@ -262,7 +262,7 @@ def test_decode_all_packed_isolates_corrupt_clip(rng):
         for i in range(win.count):
             seen.append((si, win.start_frame + i, attempt))
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     with pytest.raises(Exception):
         pool.decode_all_packed(clips, sink=sink, retries=1)
     healthy = [(si, fi) for si, fi, _ in seen if si != 1]
@@ -304,7 +304,7 @@ def test_decode_all_packed_midstream_failure_no_redelivery(rng):
             seen.append((si, win.start_frame + i, attempt))
 
     pool = StreamPool(DecodeConfig(
-        frames_per_batch=4, use_pallas=False,
+        frames_per_batch=4,
         num_output_buffers=1, prefetch_batches=1,
     ))
     with pytest.raises(ValueError):
@@ -320,7 +320,7 @@ def test_pool_warmup_precompiles_all_pipelines():
 
     devs = jax.devices()[:2]
     pool = StreamPool(
-        DecodeConfig(frames_per_batch=4, use_pallas=False), devices=devs
+        DecodeConfig(frames_per_batch=4), devices=devs
     )
     pool.warmup(48, 32)
     assert all(len(p._step_cache) == 1 for p in pool.pipelines)
@@ -360,7 +360,7 @@ def test_pool_resilient_mixed_streams():
         for j in range(win.count):
             got[si][win.start_frame + j] = win.frames[j]
 
-    pool = StreamPool(DecodeConfig(frames_per_batch=4, use_pallas=False))
+    pool = StreamPool(DecodeConfig(frames_per_batch=4))
     # Without resilient, the pool raises on the damaged stream.
     with pytest.raises(ValueError):
         pool.decode_all([clean, damaged])
@@ -390,7 +390,7 @@ def test_cli_serve_resilient(tmp_path, capsys):
     damaged = corrupt_plane(data, index, 1)
     p = tmp_path / "d.mpg"
     p.write_bytes(damaged)
-    rc = cli.main(["serve", str(p), "--resilient", "--no-pallas"])
+    rc = cli.main(["serve", str(p), "--resilient"])
     assert rc == 0
     err = capsys.readouterr().err
     assert "skipped" in err

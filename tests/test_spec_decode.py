@@ -66,7 +66,7 @@ def test_pipeline_spec_mode_matches_oracle():
     data = encoder.encode_frames(frames, max_i_interval=3)
     want = decoder.decode_stream_array(data)
     pipe = DecodePipeline(
-        DecodeConfig(use_pallas=False, frames_per_batch=2, spec_segments=4)
+        DecodeConfig(frames_per_batch=2, spec_segments=4)
     )
     got = pipe.decode_array(data)
     np.testing.assert_array_equal(got, want)

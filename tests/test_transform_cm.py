@@ -1,12 +1,14 @@
-"""Coefficient-major fused kernel + native CM parser vs the baseline."""
+"""The native coefficient-major parse emitter (decode_batch_cm) vs the
+block-major one, and through the device step's carry chain."""
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 from mjpeg423_tpu.codec import decoder, encoder
-from mjpeg423_tpu.core.format import parse_file
 from mjpeg423_tpu.core import format as fmt
 from mjpeg423_tpu.native import centropy
-from mjpeg423_tpu.ops import transform_fused
+from mjpeg423_tpu.ops import transform_jax
 
 from conftest import make_test_frames
 
@@ -18,24 +20,6 @@ def stream():
     data = encoder.encode_frames(frames, max_i_interval=4)
     want = decoder.decode_stream_array(data)
     return data, want
-
-
-def test_cm_kernel_matches_oracle(stream):
-    data, want = stream
-    coefs = decoder.parse_coefficient_deltas(parse_file(data))
-    bh, bw = coefs.height // 8, coefs.width // 8
-    amps = np.stack([coefs.y, coefs.cb, coefs.cr])  # (3, F, B, 64)
-    # Reorder host-side into the CM layout for the kernel contract check.
-    f = amps.shape[1]
-    amps_cm = np.ascontiguousarray(
-        amps.reshape(3, f, bh, bw, 64).transpose(0, 1, 2, 4, 3)
-    )
-    seg = coefs.frame_types == 0
-    carry = np.zeros((3, bh, 64, bw), dtype=np.int16)
-    frames, _ = transform_fused.decode_window_fused_cm(
-        amps_cm, seg, carry, blocks_h=bh, blocks_w=bw
-    )
-    np.testing.assert_array_equal(np.asarray(frames), want)
 
 
 @pytest.mark.skipif(not centropy.native_available(), reason="no native codec")
@@ -62,7 +46,7 @@ def test_cm_end_to_end_carry_chain(stream):
     nb = index.header.blocks_per_plane
     bh, bw = index.header.blocks_h, index.header.blocks_w
     nf = index.num_frames
-    carry = np.zeros((3, bh, 64, bw), dtype=np.int16)
+    carry = jnp.zeros((3, nb, 64), jnp.int16)
     outs = []
     w = 4
     for s in range(0, nf, w):
@@ -72,12 +56,14 @@ def test_cm_end_to_end_carry_chain(stream):
         lens = index.plane_len[:, sl].reshape(-1)
         is_p = np.broadcast_to(index.frame_type[sl] != 0, (3, c)).reshape(-1)
         cm = centropy.decode_batch_cm(data, offs, lens, is_p, nb, bw)
-        amps_cm = cm.reshape(3, c, bh, 64, bw)
-        seg = index.is_iframe[sl]
-        frames, carry = transform_fused.decode_window_fused_cm(
-            amps_cm, seg, carry, blocks_h=bh, blocks_w=bw
+        # Undo the cm relayout on the host, then run the device step.
+        amps = cm.reshape(3, c, bh, 64, bw).swapaxes(-1, -2).reshape(
+            3, c, nb, 64
         )
-        carry = np.asarray(carry)
+        frames, carry = transform_jax.decode_window(
+            jnp.asarray(amps), jnp.asarray(index.is_iframe[sl]), carry,
+            blocks_h=bh, blocks_w=bw,
+        )
         outs.append(np.asarray(frames))
     got = np.concatenate(outs, axis=0)
     np.testing.assert_array_equal(got, want)
